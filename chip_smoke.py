@@ -5,12 +5,15 @@
 Drives the port's main path (the batched ANYmal trot-MPC Newton update,
 ``OCPSolver`` -> ``BatchedSolver.update``, N=20, B=512, f32) through the entry
 points a user calls, builds the CUDA kernel from the sources in this checkout,
-holds it against its plain PyTorch version on the card, shows that the main
-path went through it (launch counts), and checks the f32 result against the
-port's own f64 run on the CPU. Every failure raises, so the process then exits
+holds both of its entry points (``chol_tri_inv``, ``chol_rescue_tri_inv``)
+against their plain PyTorch versions on the card, shows that the main path went
+through them (launch counts), and checks the f32 result against the port's own
+f64 run on the CPU. Every failure raises, so the process then exits
 non-zero. It needs one CUDA device and no network. One JSON object per line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
+import ctypes
+import importlib
 import json
 import re
 import subprocess
@@ -35,10 +38,13 @@ F32_FLOPS = 67e12          # float32 outside the tensor cores
 F64_FLOPS = 67e12 / 2
 
 BATCH, N_HORIZON, ITERS, T_HORIZON, T0 = 512, 20, 20, 0.5, 0.05
-LAUNCHES_PER_UPDATE = 24   # 4 stage/slot factorizations + 20 Riccati steps
+# per update: 4 stage/slot factorizations + the switching Schur complement of
+# 20 Riccati steps; the control Hessian of the same 20 steps
+LAUNCHES_PER_UPDATE = {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
                (BATCH * 4, 18, 18), (BATCH * 4, 12, 12), (BATCH, 12, 12)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
+RESCUE_SHAPES = [(BATCH, 12, 12), (777, 12, 12), (77, 18, 18), (45, 7, 7)]
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
 U0_TOL = 1e-3
 
@@ -99,6 +105,79 @@ def check_against_plain(A, what):
     return float(err.max())
 
 
+def unaligned(A):
+    """A copy of A whose data pointer is one element past a 16-byte boundary."""
+    buf = torch.empty(A.numel() + 1, dtype=A.dtype, device=A.device)
+    out = buf[1:].view(A.shape)
+    out.copy_(A)
+    if out.data_ptr() % 16 == 0 or not out.is_contiguous():
+        raise AssertionError("could not make an unaligned tensor")
+    return out
+
+
+def set_min_eig(G, value):
+    """G (f64, symmetric) with its smallest eigenvalue replaced by `value`."""
+    w, V = torch.linalg.eigh(G)
+    w[..., 0] = value
+    return (V * w[..., None, :]) @ V.mT
+
+
+def ladder_batch(shape, dtype, gen, reg):
+    """Symmetric matrices that take rung 0, 1 and 2 of the rescue ladder in
+    turns (matrix i takes rung i % 3), every decision far from round-off in
+    f32: well-conditioned SPD; a small-normed matrix with one eigenvalue at
+    -2e-5 - reg (only the mild boost, about 1e-4, repairs it); one eigenvalue
+    at -0.5 - reg (only the trace-scale boost does). Returns (G, rungs)."""
+    b, n, _ = shape
+    G = spd(shape, torch.float64, gen) / n
+    rungs = torch.arange(b, device="cuda") % 3
+    small = 1e-3 * G[rungs == 1]
+    G[rungs == 1] = set_min_eig(small, -2e-5 - reg)
+    G[rungs == 2] = set_min_eig(G[rungs == 2], -0.5 - reg)
+    G = 0.5 * (G + G.mT)
+    return G.to(dtype).contiguous(), rungs
+
+
+def rung_taken(K, G, reg):
+    """The rung behind an inverse factor K: K^-1 K^-T - G - reg I is that
+    rung's diagonal boost (0, 1e-4 scale or scale)."""
+    n = G.shape[-1]
+    G = G.double()
+    Linv = torch.linalg.inv(K.double())
+    shift = torch.diagonal(Linv @ Linv.mT - G, dim1=-2, dim2=-1).mean(-1) - reg
+    scale = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / n + 1.0
+    boosts = torch.stack([0.0 * scale, 1e-4 * scale, scale], dim=-1)
+    return (shift[:, None] - boosts).abs().argmin(dim=-1)
+
+
+def check_rescue_against_plain(G, reg, rungs, what):
+    """The rescue entry point against its plain version on the card: values
+    against the f64 run, the rung taken against the plain version in the
+    kernel's own precision and against the rung the matrix was built for.
+    Returns the largest absolute error."""
+    K = ops.chol_rescue_tri_inv(G, reg)
+    torch.cuda.synchronize()
+    R = ops.chol_rescue_tri_inv_reference(G.double(), reg)
+    same = ops.chol_rescue_tri_inv_reference(G, reg)
+    n = G.shape[-1]
+    if not bool(torch.isfinite(K).all()):
+        raise AssertionError(f"chol_rescue_tri_inv {what}: non-finite result")
+    taken = rung_taken(K, G, reg)
+    if not (bool((taken == rung_taken(same, G, reg)).all())
+            and bool((taken == rungs).all())):
+        raise AssertionError(f"chol_rescue_tri_inv {what}: wrong rung taken")
+    err = (K.double() - R).abs().reshape(-1, n * n).amax(dim=1)
+    scale = R.abs().reshape(-1, n * n).amax(dim=1)
+    tol = KERNEL_TOL[G.dtype]
+    if not bool((err <= tol * scale).all()):
+        raise AssertionError(
+            f"chol_rescue_tri_inv {what}: max err/scale "
+            f"{float((err / scale).max()):.3e} above {tol:g}")
+    if not bool((torch.triu(K, 1) == 0).all()):
+        raise AssertionError(f"chol_rescue_tri_inv {what}: upper triangle not 0")
+    return float(err.max())
+
+
 def time_ms(fn, inputs, reps):
     """Mean milliseconds of fn over `reps` rounds through `inputs` (distinct
     buffers larger than the L2 cache together), CUDA events, after a warm-up."""
@@ -149,17 +228,92 @@ def library_call(A):
                                          upper=False)
 
 
-def bound_ms(shape, dtype):
+def bound_ms(shape, dtype, factorizations=1):
     """Least time the card could take: the larger of bytes moved (input read
     once, output written once) over the memory rate and operations (n^3/3 for
-    the factorization + n^3/3 for the triangular inverse) over the peak rate."""
+    each factorization this run's data needs + n^3/3 for the triangular
+    inverse) over the peak rate."""
     b, n, _ = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
     t_bytes = 2 * b * n * n * itemsize / HBM_BYTES_PER_S
-    t_ops = b * (2.0 * n ** 3 / 3.0) / (F32_FLOPS if dtype == torch.float32
-                                        else F64_FLOPS)
+    t_ops = b * ((factorizations + 1) * n ** 3 / 3.0) / (
+        F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def launch_floor_probe():
+    """One launch of the library's empty kernel on the current stream."""
+    lib = _build.load("chol_tri_inv")
+    lib.launch_floor_probe.argtypes = [ctypes.c_void_p]
+    lib.launch_floor_probe.restype = ctypes.c_int
+
+    def probe(_):
+        if lib.launch_floor_probe(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+    return probe
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of fn (host clock; the queue is drained
+    before and after)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
+def wrapper_host_cost(gen):
+    """What one wrapper call costs on the host at (512, 12, 12) f32, piece by
+    piece: the pieces of ``ops.chol._run``, the two it avoids on the current
+    device (a ``Stream`` object, a device context) and the whole call."""
+    A = spd((BATCH, 12, 12), torch.float32, gen)
+    out = torch.empty_like(A)
+    # the module, not the function `chol` that the package exports over it
+    chol_module = importlib.import_module("idocp_tpu_torch.ops.chol")
+    fn = chol_module._kernel("chol_tri_inv", A.dtype, ())
+    stream = chol_module._current_stream(0)
+
+    def device_context():
+        with torch.cuda.device(A.device):
+            pass
+
+    return {
+        "empty_like": host_us(lambda: torch.empty_like(A)),
+        "current_device": host_us(torch.cuda.current_device),
+        "current_stream_object": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream),
+        "current_stream_handle": host_us(lambda: chol_module._current_stream(0)),
+        "device_context": host_us(device_context),
+        "ctypes_launch": host_us(
+            lambda: fn(A.data_ptr(), out.data_ptr(), BATCH, 12, stream)),
+        "chol_tri_inv": host_us(lambda: ops.chol_tri_inv(A)),
+        "chol_rescue_tri_inv": host_us(lambda: ops.chol_rescue_tri_inv(A, 0.0)),
+    }
+
+
+def timing_row(fn, plain, shape, err, gen, floor_probe):
+    """Timings of one entry point at one f32 shape of the main path, over
+    distinct SPD buffers that together exceed the L2 cache."""
+    b, n, _ = shape
+    nbytes = 2 * b * n * n * 4
+    k = int(min(64, max(2, -(-100e6 // nbytes))))
+    inputs = [spd(shape, torch.float32, gen) for _ in range(k)]
+    reps = max(1, 200 // k)
+    bms, by = bound_ms(shape, torch.float32)
+    return {
+        "shape": list(shape), "dtype": "float32", "max_abs_err": err,
+        "ms": device_ms(fn, inputs),
+        "launch_floor_ms": device_ms(floor_probe, inputs),
+        "eager_ms": time_ms(fn, inputs, reps),
+        "plain_ms": time_ms(plain, inputs[:2], 2),
+        "library_ms": time_ms(library_call, inputs, max(1, reps // 4)),
+        "bound_ms": bms, "bound_by": by}
 
 
 def phase_kernels(gen):
@@ -169,6 +323,10 @@ def phase_kernels(gen):
             errs[(shape, dtype)] = check_against_plain(
                 spd(shape, dtype, gen), f"{shape} {dtype}")
         check_against_plain(schur_like(2048, dtype, gen), f"masked S {dtype}")
+        # a tensor that is not 16-byte aligned takes the scalar staging
+        for shape in ((1000, 18, 18), (100, 12, 12)):
+            check_against_plain(unaligned(spd(shape, dtype, gen)),
+                                f"unaligned {shape} {dtype}")
 
         # one indefinite matrix: NaN there (same pattern as the plain
         # version), neighbours untouched and finite
@@ -185,37 +343,59 @@ def phase_kernels(gen):
                 and bool((torch.isnan(bad) == torch.isnan(ref)).all())):
             raise AssertionError(f"chol_tri_inv NaN isolation failed ({dtype})")
 
+    # the rescue ladder: rungs 0, 1 and 2 mixed in one batch
+    rescue_errs = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in RESCUE_SHAPES:
+            for reg in (0.0, 1e-3):
+                G, rungs = ladder_batch(shape, dtype, gen, reg)
+                rescue_errs[(shape, dtype, reg)] = check_rescue_against_plain(
+                    G, reg, rungs, f"{shape} {dtype} reg={reg}")
+        G, rungs = ladder_batch((100, 12, 12), dtype, gen, 0.0)
+        check_rescue_against_plain(unaligned(G), 0.0, rungs, f"unaligned {dtype}")
+        # on positive definite input the ladder changes nothing
+        A = spd((BATCH, 12, 12), dtype, gen)
+        if not bool((ops.chol_rescue_tri_inv(A, 0.0) == ops.chol_tri_inv(A)).all()):
+            raise AssertionError(f"rescue differs from chol_tri_inv on SPD ({dtype})")
+        rescue_errs[((BATCH, 12, 12), dtype, "spd")] = check_rescue_against_plain(
+            A, 0.0, torch.zeros(BATCH, dtype=torch.long, device="cuda"),
+            f"SPD {dtype}")
+        # neighbours of a rescued matrix: bit-identical to a batch without it
+        G, rungs = ladder_batch((BATCH, 12, 12), dtype, gen, 0.0)
+        calm = torch.where((rungs == 0)[:, None, None], G, A)
+        keep = rungs == 0
+        if not bool((ops.chol_rescue_tri_inv(G)[keep]
+                     == ops.chol_rescue_tri_inv(calm)[keep]).all()):
+            raise AssertionError(f"rescue isolation failed ({dtype})")
+
     # what the kernel does not take raises
     A = spd((16, 12, 12), torch.float32, gen)
-    for bad_input, exc in ((A.mT, ValueError), (A.half(), TypeError),
-                           (spd((2, 33, 33), torch.float32, gen), ValueError)):
-        try:
-            ops.chol_tri_inv(bad_input)
-        except exc:
-            continue
-        raise AssertionError("chol_tri_inv accepted an unsupported input")
+    for wrapper in (ops.chol_tri_inv, ops.chol_rescue_tri_inv):
+        for bad_input, exc in ((A.mT, ValueError), (A.half(), TypeError),
+                               (spd((2, 33, 33), torch.float32, gen), ValueError)):
+            try:
+                wrapper(bad_input)
+            except exc:
+                continue
+            raise AssertionError(
+                f"{wrapper.__name__} accepted an unsupported input")
 
     # timings at the path's shapes, f32
-    rows = []
-    for shape in PATH_SHAPES:
-        b, n, _ = shape
-        nbytes = 2 * b * n * n * 4
-        k = int(min(64, max(2, -(-100e6 // nbytes))))
-        inputs = [spd(shape, torch.float32, gen) for _ in range(k)]
-        reps = max(1, 200 // k)
-        bms, by = bound_ms(shape, torch.float32)
-        rows.append({
-            "shape": list(shape), "dtype": "float32",
-            "max_abs_err": errs[(shape, torch.float32)],
-            "ms": device_ms(ops.chol_tri_inv, inputs),
-            "eager_ms": time_ms(ops.chol_tri_inv, inputs, reps),
-            "plain_ms": time_ms(ops.chol_tri_inv_reference, inputs[:2], 2),
-            "library_ms": time_ms(library_call, inputs, max(1, reps // 4)),
-            "bound_ms": bms, "bound_by": by})
-        del inputs
-    emit(phase="kernels", kernel="chol_tri_inv", tolerance_f32=1e-4,
-         tolerance_f64=1e-11, checked_shapes=len(errs) + 4, shapes=rows)
-    return rows
+    probe = launch_floor_probe()
+    rows = [timing_row(ops.chol_tri_inv, ops.chol_tri_inv_reference, shape,
+                       errs[(shape, torch.float32)], gen, probe)
+            for shape in PATH_SHAPES]
+    rescue_shape = (BATCH, 12, 12)   # the control Hessian of one Riccati step
+    rescue_rows = [timing_row(
+        ops.chol_rescue_tri_inv, ops.chol_rescue_tri_inv_reference,
+        rescue_shape, rescue_errs[(rescue_shape, torch.float32, "spd")], gen,
+        probe)]
+    emit(phase="kernels", tolerance_f32=1e-4, tolerance_f64=1e-11,
+         chol_tri_inv={"checked_shapes": len(errs) + 8, "shapes": rows},
+         chol_rescue_tri_inv={"checked_cases": len(rescue_errs) + 4,
+                              "shapes": rescue_rows},
+         wrapper_host_us=wrapper_host_cost(gen))
+    return {"chol_tri_inv": rows, "chol_rescue_tri_inv": rescue_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +442,10 @@ def phase_main_path(gpu):
     if sched.host_counts() != (1, 1):
         raise AssertionError(f"schedule counts {sched.host_counts()} != (1, 1)")
     torch.cuda.reset_peak_memory_stats()
-    ops.chol_tri_inv.launches = 0
+    wrappers = {"chol_tri_inv": ops.chol_tri_inv,
+                "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
     t0 = time.time()
     sol_b, stats = bs.update(sol_b, T0, q_b, v_b, sched)      # warm-up
     torch.cuda.synchronize()
@@ -274,12 +457,13 @@ def phase_main_path(gpu):
         frozen = frozen + (stats.alpha_primal <= 0).sum()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = ops.chol_tri_inv.launches
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
 
-    if launches != (ITERS + 1) * LAUNCHES_PER_UPDATE:
-        raise AssertionError(
-            f"{launches} kernel launches in {ITERS + 1} updates, expected "
-            f"{LAUNCHES_PER_UPDATE} each")
+    for name, per_update in LAUNCHES_PER_UPDATE.items():
+        if launches[name] != (ITERS + 1) * per_update:
+            raise AssertionError(
+                f"{launches[name]} {name} launches in {ITERS + 1} updates, "
+                f"expected {per_update} each")
     if not bool(torch.isfinite(stats.cost).all()):
         raise AssertionError("non-finite cost after the last update")
     if int(frozen) != 0:
@@ -291,8 +475,8 @@ def phase_main_path(gpu):
          dtype="float32", iters=ITERS, warmup_s=warmup_s,
          ms_per_update=1e3 * wall / ITERS,
          solves_per_s=BATCH * ITERS / wall,
-         chol_tri_inv_launches=launches,
-         launches_per_update=launches // (ITERS + 1),
+         launches=launches,
+         launches_per_update={k: v // (ITERS + 1) for k, v in launches.items()},
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          mean_cost=float(stats.cost.mean()),
          mean_kkt_direction_norm=float(stats.kkt_direction_norm.mean()))
@@ -333,9 +517,28 @@ def phase_split(gpu, state):
             split["rollout"] += ms / reps
             _, ms = timed(lambda: bs.update(sol_b, T0, q_b, v_b, sched))
             split["whole_update"] += ms / reps
-    split["expand_and_step"] = split["whole_update"] - sum(
-        v for k, v in split.items() if k != "whole_update")
-    emit(phase="split_ms", gpu=gpu, **split)
+        split["expand_and_step"] = split["whole_update"] - sum(
+            v for k, v in split.items() if k != "whole_update")
+
+        # the control-Hessian factorization of one Riccati step (the last
+        # stage's G = Quu + B'PB from the terminal P), through the kernel as
+        # the path runs it and through the plain version as a yardstick, in
+        # turns
+        last = recursion._stage(cs, N_HORIZON - 1)
+        G = last.Quu + last.B.mT @ term[2] @ last.B
+        G = (0.5 * (G + G.mT)).contiguous()
+        both = {"kernel": lambda: ops.chol_rescue_tri_inv(G, 0.0),
+                "plain": lambda: ops.chol_rescue_tri_inv_reference(G, 0.0)}
+        factor = {"kernel": [], "plain": []}
+        for fn in both.values():
+            fn()                                               # warm-up
+        for which in ("kernel", "plain", "plain", "kernel") * 5:
+            factor[which].append(timed(both[which])[1])
+    emit(phase="split_ms", gpu=gpu, **split,
+         g_factorization_shape=list(G.shape),
+         g_factorization_kernel_ms=float(np.median(factor["kernel"])),
+         g_factorization_plain_ms=float(np.median(factor["plain"])),
+         g_factorization_runs=len(factor["kernel"]))
 
 
 def phase_accuracy(gpu):
@@ -383,20 +586,17 @@ def main():
     del state
     phase_accuracy(gpu)
 
-    main_row = rows[0]
     print(gpu)
-    emit(kernels=[{
-        "name": "chol_tri_inv", "route": "cuda",
-        "source": "idocp_tpu_torch/ops/csrc/chol_tri_inv.cu",
-        "replaces": "idocp_tpu/ops/chol.py:83",
-        "launches": launches,
-        "shape": main_row["shape"], "dtype": main_row["dtype"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "eager_ms": main_row["eager_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "other_shapes": rows[1:]}])
+    kernels = []
+    for name, shapes in rows.items():
+        main_row = shapes[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "idocp_tpu_torch/ops/csrc/chol_tri_inv.cu",
+            "replaces": "idocp_tpu/ops/chol.py:83",
+            "launches": launches[name],
+            **main_row, "other_shapes": shapes[1:]})
+    emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -6,7 +6,7 @@ Entry points take an explicit ``device`` and ``dtype``, default to
 ``device="cuda"`` and raise when there is no card. Ported so far: the batched
 whole-body trot-MPC Newton update (``OCPSolver`` / ``BatchedSolver.update``
 without line search) and everything below it, down to the hand-written CUDA
-kernel ``ops.chol_tri_inv``.
+kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``.
 """
 from .constraints.components import (ConstraintComponent, FrictionCone,
                                      JointTorquesLowerLimit,

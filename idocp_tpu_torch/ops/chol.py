@@ -1,19 +1,33 @@
 """Batched small-matrix Cholesky and triangular inverse.
 
-Twin of ``idocp_tpu/ops/chol.py`` (the Pallas kernel ``chol_tri_inv``) and of
-``idocp_tpu/ops/smallchol.py`` (``chol``, ``tri_inv``).
+Twin of ``idocp_tpu/ops/chol.py`` (the Pallas kernel ``chol_tri_inv``), of
+``idocp_tpu/ops/smallchol.py`` (``chol``, ``tri_inv``) and of the rescue ladder
+``chol_rescue`` of ``idocp_tpu/riccati/recursion.py``.
 
-``chol_tri_inv(A)`` returns L^{-1} for SPD ``A = L L^T`` of shape
-``(..., n, n)``, n <= 32. On a CUDA tensor it launches the hand-written kernel
-``csrc/chol_tri_inv.cu`` (one warp per matrix) or raises; on a CPU tensor it
-runs ``chol_tri_inv_reference``, the same recurrence in plain PyTorch. Only
-the lower triangle of ``A`` is read, the strict upper triangle of the result
-is 0, and a matrix that is not positive definite yields NaN from the failing
-pivot on, in that matrix only (``riccati.recursion.chol_rescue`` style ladders
-rely on that).
+Two entry points reach the hand-written CUDA kernel ``csrc/chol_tri_inv.cu``
+(a matrix per thread or per group of 2 or 4 lanes at the solver's sizes n = 12
+and n = 18, a matrix per warp elsewhere; the C launcher chooses). Both take ``(..., n, n)``, n <= 32,
+contiguous f32 / f64, read the lower triangle only and return a lower
+triangular matrix whose strict upper triangle is 0:
 
-``chol`` and ``tri_inv`` are plain batched PyTorch (column / row loops over n):
-in the JAX package they are ordinary traced code outside any kernel.
+``chol_tri_inv(A)``
+    L^{-1} for SPD ``A = L L^T``. A matrix that is not positive definite
+    yields NaN from the failing pivot on, in that matrix only.
+``chol_rescue_tri_inv(G, reg)``
+    L^{-1} for the first rung of the Levenberg ladder ``chol_rescue`` whose
+    factor is finite: ``G + reg I``, then ``+ 1e-4 scale I``, then
+    ``+ scale I`` with ``scale = trace(G)/n + 1``. Each matrix climbs its own
+    ladder; the last rung is always positive definite for a symmetric ``G``
+    with a non-negative trace.
+
+On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor it
+runs its plain PyTorch version (``chol_tri_inv_reference``,
+``chol_rescue_tri_inv_reference``), the same recurrence in batched tensor
+code. Each wrapper counts its launches in ``<wrapper>.launches``.
+
+``chol``, ``tri_inv`` and ``chol_rescue`` are plain batched PyTorch (column /
+row loops over n): in the JAX package they are ordinary traced code outside
+any kernel.
 """
 from __future__ import annotations
 
@@ -55,60 +69,113 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def chol_rescue(G, reg=0.0):
+    """Cholesky of G + reg I with a Levenberg NaN-rescue ladder, per matrix.
+
+    In f32 the condensed G = Quu + B'PB can be marginally indefinite from
+    round-off; a failed Cholesky (NaN) would poison the whole horizon. Three
+    candidate factors with increasing diagonal boosts (scaled by
+    trace(G)/n): unboosted, a mild 1e-4 boost, and a heavy trace-scale
+    fallback that is always SPD; the first finite one is selected for each
+    matrix with ``where`` (no host-side branch). In f64 regimes the
+    unboosted factor is always chosen. The three candidates are factored as
+    one stacked batch."""
+    n = G.shape[-1]
+    I = torch.eye(n, dtype=G.dtype, device=G.device)
+    scale = (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / n + 1.0)[..., None, None]
+    G0 = G + reg * I
+    L = chol(torch.stack([G0, G0 + (1e-4 * scale) * I, G0 + scale * I]))
+    ok = torch.isfinite(L).all(dim=-1).all(dim=-1)[..., None, None]
+    return torch.where(ok[0], L[0], torch.where(ok[1], L[1], L[2]))
+
+
 def chol_tri_inv_reference(A: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: L^{-1} for ``A = L L^T``."""
+    """Plain PyTorch version of ``chol_tri_inv``: L^{-1} for ``A = L L^T``."""
     return tri_inv(chol(A))
+
+
+def chol_rescue_tri_inv_reference(G: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of ``chol_rescue_tri_inv``."""
+    return tri_inv(chol_rescue(G, reg))
 
 
 _kernels: dict = {}
 
 
-def _kernel(dtype):
-    """The library's C entry point for `dtype` (the library is built and
-    loaded at first use)."""
-    if dtype not in _kernels:
-        from . import _build
-        lib = _build.load("chol_tri_inv")
-        fn = getattr(lib, "chol_tri_inv_f32" if dtype == torch.float32
-                     else "chol_tri_inv_f64")
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _kernels[dtype] = fn
-    return _kernels[dtype]
+def _kernel(name, dtype, extra_argtypes):
+    """The library's C entry point ``<name>_f32 / _f64`` (the library is
+    built and loaded at first use)."""
+    from . import _build
+    lib = _build.load("chol_tri_inv")
+    fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, *extra_argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _kernels[name, dtype] = fn
+    return fn
 
 
-def _launch(A: torch.Tensor) -> torch.Tensor:
-    fn = _kernel(A.dtype)
-    n = A.shape[-1]
-    batch = A.numel() // (n * n)
+def _current_stream(index: int) -> int:
+    """Handle of the current CUDA stream of device ``index``. PyTorch's
+    internal accessor returns it without building a ``Stream`` object, which
+    costs more than the rest of a wrapper call together."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _run(wrapper, plain, A: torch.Tensor, extra_argtypes=(), *extra):
+    """Check ``A``, then the plain version for a CPU tensor, one kernel launch
+    on the current stream of its device for a CUDA tensor. (The C launcher
+    falls back to 4-byte staging when ``A`` is not 16-byte aligned.)"""
+    shape = A.shape
+    if len(shape) < 2 or shape[-1] != shape[-2]:
+        raise ValueError(f"expected (..., n, n), got {tuple(shape)}")
+    n = shape[-1]
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"n must be in 1..{N_MAX}, got {n}")
+    dtype = A.dtype
+    if dtype != torch.float32 and dtype != torch.float64:
+        raise TypeError(f"expected float32 or float64, got {dtype}")
+    if not A.is_contiguous():
+        raise ValueError(f"{wrapper.__name__} needs a contiguous tensor")
+    device = A.device
+    if device.type == "cpu":
+        return plain(A, *extra)
+    if device.type != "cuda":
+        raise RuntimeError(f"unsupported device {device}")
+
+    name = wrapper.__name__
+    fn = _kernels.get((name, dtype)) or _kernel(name, dtype, extra_argtypes)
     out = torch.empty_like(A)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(A.data_ptr(), out.data_ptr(), batch, n, stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(A.data_ptr(), out.data_ptr(), A.numel() // (n * n), n, *extra,
+                 _current_stream(index))
+    else:  # a launch goes to the calling thread's current device
+        with torch.cuda.device(index):
+            err = fn(A.data_ptr(), out.data_ptr(), A.numel() // (n * n), n,
+                     *extra, _current_stream(index))
     if err != 0:
-        raise RuntimeError(f"chol_tri_inv kernel launch failed: CUDA error {err}")
-    chol_tri_inv.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return out
 
 
 def chol_tri_inv(A: torch.Tensor) -> torch.Tensor:
     """L^{-1} for ``A = L L^T``, ``A (..., n, n)`` contiguous f32/f64, n <= 32.
     ``chol_tri_inv.launches`` counts kernel launches."""
-    if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
-        raise ValueError(f"expected (..., n, n), got {tuple(A.shape)}")
-    n = A.shape[-1]
-    if not 1 <= n <= N_MAX:
-        raise ValueError(f"n must be in 1..{N_MAX}, got {n}")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"expected float32 or float64, got {A.dtype}")
-    if not A.is_contiguous():
-        raise ValueError("chol_tri_inv needs a contiguous tensor")
-    if A.device.type == "cpu":
-        return chol_tri_inv_reference(A)
-    if A.device.type != "cuda":
-        raise RuntimeError(f"unsupported device {A.device}")
-    return _launch(A)
+    return _run(chol_tri_inv, chol_tri_inv_reference, A)
+
+
+def chol_rescue_tri_inv(G: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
+    """L^{-1} for the first finite rung of ``chol_rescue(G, reg)``,
+    ``G (..., n, n)`` contiguous f32/f64, n <= 32, ``reg`` a Python number.
+    ``chol_rescue_tri_inv.launches`` counts kernel launches."""
+    return _run(chol_rescue_tri_inv, chol_rescue_tri_inv_reference, G,
+                (ctypes.c_double,), float(reg))
 
 
 chol_tri_inv.launches = 0
+chol_rescue_tri_inv.launches = 0

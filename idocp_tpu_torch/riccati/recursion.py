@@ -3,10 +3,12 @@ constraints (the switching constraint).
 
 Twin of ``idocp_tpu/riccati/recursion.py``. The serial sweep is a Python loop
 over the N stages; every per-stage operation is dense small-matrix algebra on
-tensors with a leading scenario axis (B, ...). The Schur complement of the
-switching rows is factored by ``ops.chol_tri_inv`` (the CUDA kernel); the
-rescue ladder on the control Hessian uses the plain ``ops.chol`` /
-``ops.tri_inv``.
+tensors with a leading scenario axis (B, ...). Both dense factorizations of a
+step go through the CUDA kernel, one launch each: the control Hessian G with
+its Levenberg rescue ladder through ``ops.chol_rescue_tri_inv``, the Schur
+complement of the switching rows through ``ops.chol_tri_inv``. The ladder's
+plain version ``chol_rescue`` (defined in ``ops.chol`` beside the kernel's
+wrapper) is re-exported here, where the JAX twin has it.
 
 Value convention: V_k(dx) = 1/2 dx' P_k dx + s_k' dx + const, costate
 lambda_k = P_k dx_k + s_k.
@@ -24,7 +26,7 @@ import dataclasses
 import torch
 
 from ..ocp.data import CondensedStage, TensorStruct
-from ..ops import chol, chol_tri_inv, tri_inv
+from ..ops import chol_rescue, chol_rescue_tri_inv, chol_tri_inv  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,26 +36,6 @@ class LQRPolicy(TensorStruct):
     k: torch.Tensor
     Kxi: torch.Tensor
     kxi: torch.Tensor
-
-
-def chol_rescue(G, reg=0.0):
-    """Cholesky of G + reg I with a Levenberg NaN-rescue ladder, per matrix.
-
-    In f32 the condensed G = Quu + B'PB can be marginally indefinite from
-    round-off; a failed Cholesky (NaN) would poison the whole horizon. Three
-    candidate factors with increasing diagonal boosts (scaled by
-    trace(G)/n): unboosted, a mild 1e-4 boost, and a heavy trace-scale
-    fallback that is always SPD; the first finite one is selected for each
-    matrix with ``where`` (no host-side branch). In f64 regimes the
-    unboosted factor is always chosen. The three candidates are factored as
-    one stacked batch."""
-    n = G.shape[-1]
-    I = torch.eye(n, dtype=G.dtype, device=G.device)
-    scale = (torch.diagonal(G, dim1=-2, dim2=-1).sum(-1) / n + 1.0)[..., None, None]
-    G0 = G + reg * I
-    L = chol(torch.stack([G0, G0 + (1e-4 * scale) * I, G0 + scale * I]))
-    ok = torch.isfinite(L).all(dim=-1).all(dim=-1)[..., None, None]
-    return torch.where(ok[0], L[0], torch.where(ok[1], L[1], L[2]))
 
 
 def backward_step(P, s, cs: CondensedStage, sw_mask, reg=0.0):
@@ -70,9 +52,9 @@ def backward_step(P, s, cs: CondensedStage, sw_mask, reg=0.0):
     Hxu = cs.Qxu + ATP[..., nx:-1]
     G = cs.Quu + B.mT @ PB
     gu = cs.lu + (B.mT @ Pr_s[..., :, None])[..., 0]
-    L = chol_rescue(0.5 * (G + G.mT), reg)
-    # one triangular inverse; every G-solve becomes two matrix products
-    Li = tri_inv(L)
+    # inverse factor of the first finite rescue rung, one kernel launch;
+    # every G-solve becomes two matrix products
+    Li = chol_rescue_tri_inv((0.5 * (G + G.mT)).contiguous(), reg)
     Gsolve = lambda X: Li.mT @ (Li @ X)
 
     # masked switching rows: [[G, Cu'], [Cu, -Sigma]] with Sigma = diag(1-m)

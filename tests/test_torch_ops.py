@@ -1,14 +1,19 @@
 """Port parity, ops: the plain PyTorch Cholesky / triangular-inverse functions
 of ``idocp_tpu_torch.ops`` against the JAX package's Pallas kernel (run in
-interpret mode, as tests/test_ops.py runs it) and against ``ops.smallchol``.
-Same numpy-seeded inputs on both sides, f64 on the CPU. On a CPU tensor the
-port's ``chol_tri_inv`` wrapper runs the plain version of its CUDA kernel."""
+interpret mode, as tests/test_ops.py runs it), against ``ops.smallchol`` and,
+for the rescue-ladder entry point, against the JAX package's
+``tri_inv(chol_rescue(G, reg))``. Same numpy-seeded inputs on both sides, f64
+on the CPU. On a CPU tensor the port's ``chol_tri_inv`` and
+``chol_rescue_tri_inv`` wrappers run the plain versions of the CUDA kernel."""
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from idocp_tpu.ops import chol_tri_inv as pallas_chol_tri_inv
 from idocp_tpu.ops import smallchol
+from idocp_tpu.riccati import recursion as j_rec
 from idocp_tpu_torch import ops as tchol
 
 # Both sides run the same recurrence in f64; only the order of a few sums
@@ -78,14 +83,80 @@ def test_nan_on_indefinite_matrix_and_only_there():
                                rtol=RTOL, atol=ATOL)
 
 
-def test_wrapper_rejects_what_the_kernel_does_not_take():
+def _set_min_eig(G, value):
+    w, V = np.linalg.eigh(G)
+    w[0] = value
+    return (V * w) @ V.T
+
+
+def _ladder_batch(n):
+    """Six symmetric matrices and the rung each must take: two positive
+    definite (rung 0), two marginally indefinite (the mild 1e-4 boost repairs
+    them), two strongly indefinite (only the trace-scale boost does)."""
+    G = _spd(100 + n, (6, n, n))
+    rungs = np.array([0, 1, 2, 2, 1, 0])
+    for b, rung in enumerate(rungs):
+        if rung:
+            G[b] = _set_min_eig(G[b], -1e-5 if rung == 1 else -0.5)
+    return G, rungs
+
+
+@pytest.mark.parametrize("n", [5, 12])
+@pytest.mark.parametrize("reg", [0.0, 1e-3])
+def test_chol_rescue_tri_inv_reference_matches_jax_ladder(n, reg):
+    G, rungs = _ladder_batch(n)
+    if reg > 1e-5:
+        rungs = np.where(rungs == 1, 0, rungs)   # reg alone repairs -1e-5
+    ref = tchol.chol_rescue_tri_inv_reference(torch.from_numpy(G), reg).numpy()
+    jax_out = np.asarray(jax.vmap(
+        lambda g: j_rec.tri_inv(j_rec.chol_rescue(g, reg)))(jnp.asarray(G)))
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(ref, jax_out, rtol=RTOL, atol=ATOL)
+    assert np.all(np.triu(ref, 1) == 0.0)
+    # each matrix took the rung it was built for: X^-1 X^-T gives back G
+    # plus that rung's diagonal boost
+    scale = np.trace(G, axis1=-2, axis2=-1) / n + 1.0
+    boost = reg + np.choose(rungs, [0.0 * scale, 1e-4 * scale, scale])
+    Linv = np.linalg.inv(ref)
+    np.testing.assert_allclose(Linv @ np.swapaxes(Linv, -1, -2),
+                               G + boost[:, None, None] * np.eye(n),
+                               rtol=1e-8, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,B", [(5, 7), (12, 6)])
+def test_chol_rescue_tri_inv_wrapper_on_cpu_is_the_plain_version(n, B):
+    G = np.resize(_ladder_batch(n)[0], (B, n, n))
+    before = tchol.chol_rescue_tri_inv.launches
+    for reg in (0.0, 1e-3):
+        out = tchol.chol_rescue_tri_inv(torch.from_numpy(G), reg)
+        ref = tchol.chol_rescue_tri_inv_reference(torch.from_numpy(G), reg)
+        np.testing.assert_array_equal(out.numpy(), ref.numpy())
+    # leading dimensions are kept
+    out4 = tchol.chol_rescue_tri_inv(torch.from_numpy(G[:6].reshape(2, 3, n, n)))
+    np.testing.assert_array_equal(
+        out4.numpy().reshape(6, n, n),
+        tchol.chol_rescue_tri_inv_reference(torch.from_numpy(G[:6])).numpy())
+    assert tchol.chol_rescue_tri_inv.launches == before   # no card, no launch
+
+
+def _assert_rejects(wrapper):
     A = torch.from_numpy(_spd(5, (4, 12, 12)))
     with pytest.raises(ValueError):
-        tchol.chol_tri_inv(A.mT)                      # not contiguous
+        wrapper(A.mT)                                 # not contiguous
     with pytest.raises(ValueError):
-        tchol.chol_tri_inv(torch.eye(33, dtype=torch.float64)[None])
+        wrapper(torch.eye(33, dtype=torch.float64)[None])
     with pytest.raises(TypeError):
-        tchol.chol_tri_inv(A.to(torch.float16))
+        wrapper(A.to(torch.float16))
     with pytest.raises(ValueError):
-        tchol.chol_tri_inv(A[:, :5])                  # not square
-    assert tchol.chol_tri_inv.launches == 0           # no card, no launch
+        wrapper(A[:, :5])                             # not square
+    with pytest.raises(RuntimeError):
+        wrapper(A.to("meta"))                         # neither CPU nor CUDA
+    assert wrapper.launches == 0                      # no card, no launch
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    _assert_rejects(tchol.chol_tri_inv)
+
+
+def test_rescue_wrapper_rejects_what_the_kernel_does_not_take():
+    _assert_rejects(tchol.chol_rescue_tri_inv)

@@ -102,6 +102,41 @@ def test_backward_step_matches_single_stage(horizon):
                                    rtol=RTOL, atol=ATOL)
 
 
+def test_backward_step_with_a_rescued_control_hessian(horizon):
+    """Scenario 1's G = Quu + B'PB is marginally indefinite, so the ladder
+    takes rung 1 there and rung 0 for scenario 0; both sides take the same."""
+    stages, sw_mask, P_term, s_term, _ = horizon
+    k = 2
+    st = {n: v[:, k].copy() for n, v in stages.items()}
+    G = st["Quu"] + np.swapaxes(st["B"], -1, -2) @ P_term @ st["B"]
+    w, V = np.linalg.eigh(G[1])
+    st["Quu"][1] -= (V[:, :1] * (w[0] + 1e-5)) @ V[:, :1].T   # min eig -> -1e-5
+    G = st["Quu"] + np.swapaxes(st["B"], -1, -2) @ P_term @ st["B"]
+    Gs = 0.5 * (G + np.swapaxes(G, -1, -2))
+    assert np.isnan(np.asarray(j_rec.smallchol.chol(jnp.asarray(Gs[1])))).any()
+    assert np.isfinite(np.asarray(j_rec.smallchol.chol(jnp.asarray(Gs[0])))).all()
+    cs = TStage(**{n: torch.from_numpy(v) for n, v in st.items()})
+    P1, s1, pol = t_rec.backward_step(
+        torch.from_numpy(P_term), torch.from_numpy(s_term), cs,
+        torch.from_numpy(sw_mask[:, k]))
+    assert torch.isfinite(P1).all() and torch.isfinite(pol.K).all()
+    for b in range(B):
+        jcs = JStage(**{n: jnp.asarray(v[b]) for n, v in st.items()})
+        jP1, js1, jpol = j_rec.backward_step(
+            jnp.asarray(P_term[b]), jnp.asarray(s_term[b]), jcs,
+            jnp.asarray(sw_mask[b, k]))
+        # the rescued system is ill-conditioned (smallest eigenvalue 1e-4
+        # scale - 1e-5): the f64 round-off of either side is amplified by its
+        # condition number, about 1e5, hence 1e-9 * 1e5 relative to the
+        # largest entry
+        for t_x, j_x in ((P1[b], jP1), (s1[b], js1), (pol.K[b], jpol.K),
+                         (pol.k[b], jpol.k)):
+            j_x = np.asarray(j_x)
+            tol = RTOL * (1e5 if b == 1 else 1.0)
+            np.testing.assert_allclose(t_x.numpy(), j_x, rtol=tol,
+                                       atol=tol * np.abs(j_x).max() + ATOL)
+
+
 def test_chol_rescue_picks_the_same_rung_per_matrix():
     rng = np.random.default_rng(5)
     n = 12
