@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (the batched ANYmal trot-MPC Newton update,
-``OCPSolver`` -> ``BatchedSolver.update``, N=20, B=512, f32) through the entry
-points a user calls, builds the CUDA kernel from the sources in this checkout,
-holds both of its entry points (``chol_tri_inv``, ``chol_rescue_tri_inv``)
-against their plain PyTorch versions on the card, shows that the main path went
-through them (launch counts), and checks the f32 result against the port's own
-f64 run on the CPU. Every failure raises, so the process then exits
+Drives the port's main paths through the entry points a user calls, all on
+the batched ANYmal trot MPC (``OCPSolver`` -> ``BatchedSolver``, N=20): the
+Newton update without line search (B=512, f32), the update with the filter
+line search on its grid of 8 trials (B=512, f32), the update with the KKT
+residual, and ``BatchedSolver.solve`` to tolerance (B=64, f64). It builds the
+CUDA kernel from the sources in this checkout, holds both of its entry points
+(``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
+versions on the card, shows that every path went through them (launch counts,
+asserted per configuration), and checks the card's results against the port's
+own f64 runs on the CPU. Every failure raises, so the process then exits
 non-zero. It needs one CUDA device and no network. One JSON object per line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -38,15 +41,39 @@ F32_FLOPS = 67e12          # float32 outside the tensor cores
 F64_FLOPS = 67e12 / 2
 
 BATCH, N_HORIZON, ITERS, T_HORIZON, T0 = 512, 20, 20, 0.5, 0.05
+LS_TRIALS, SOLVE_BATCH, SOLVE_CAP, CPU_SCENARIOS = 8, 64, 30, 8
+# solve() to the tolerance a user would ask of f64, which the filter search's
+# margin keeps this problem from reaching in 30 iterations, and to one that
+# the scenarios reach after different numbers of iterations
+SOLVE_TOLS = (1e-6, 1e-4)
 # per update: 4 stage/slot factorizations + the switching Schur complement of
-# 20 Riccati steps; the control Hessian of the same 20 steps
-LAUNCHES_PER_UPDATE = {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20}
+# 20 Riccati steps; the control Hessian of the same 20 steps. The line search
+# adds the impulse map of its trial grid (M and the contact Schur complement
+# on batch x trials x 4 impulse slots).
+LAUNCHES_PER_UPDATE = {
+    "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
+    "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20}}
+WRAPPERS = {"chol_tri_inv": ops.chol_tri_inv,
+            "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
-               (BATCH * 4, 18, 18), (BATCH * 4, 12, 12), (BATCH, 12, 12)]
+               (BATCH * 4, 18, 18), (BATCH * 4, 12, 12), (BATCH, 12, 12),
+               (BATCH * LS_TRIALS * 4, 18, 18), (BATCH * LS_TRIALS * 4, 12, 12)]
+# what BatchedSolver.solve at SOLVE_BATCH gives the kernel: batches that fit
+# one wave of the card, where the launcher spreads the chunks over more warps
+SOLVE_SHAPES = [(SOLVE_BATCH * N_HORIZON, 18, 18),
+                (SOLVE_BATCH * N_HORIZON, 12, 12),
+                (SOLVE_BATCH * 4, 18, 18), (SOLVE_BATCH * 4, 12, 12),
+                (SOLVE_BATCH, 12, 12)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
-RESCUE_SHAPES = [(BATCH, 12, 12), (777, 12, 12), (77, 18, 18), (45, 7, 7)]
+RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
+                 (77, 18, 18), (45, 7, 7)]
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
 U0_TOL = 1e-3
+SOLVE_U0_TOL = 1e-6
+# evaluate_all at the current point against the update's own (cost0, viol0)
+# in f32: both sum some 2 000 terms of the same residuals, computed by the
+# value-only and the derivative code paths; |difference| <= this * (1 + |value|)
+MERIT_TOL = 2e-4
 
 
 def emit(**obj):
@@ -319,7 +346,7 @@ def timing_row(fn, plain, shape, err, gen, floor_probe):
 def phase_kernels(gen):
     errs = {}
     for dtype in (torch.float32, torch.float64):
-        for shape in PATH_SHAPES + AWKWARD_SHAPES:
+        for shape in PATH_SHAPES + SOLVE_SHAPES + AWKWARD_SHAPES:
             errs[(shape, dtype)] = check_against_plain(
                 spd(shape, dtype, gen), f"{shape} {dtype}")
         check_against_plain(schur_like(2048, dtype, gen), f"masked S {dtype}")
@@ -402,7 +429,23 @@ def phase_kernels(gen):
 # main path
 # ---------------------------------------------------------------------------
 
-def build(batch, n_horizon, dtype, device, seed=0):
+def options_for(line_search_on, kkt_error_on):
+    """The workload's solver options: without line search the trust cap of
+    1.0 is the globalization, with it the filter search on 8 trials is."""
+    if not line_search_on:
+        return it.SolverOptions(barrier=1e-3, max_step_norm=1.0,
+                                use_line_search=False,
+                                compute_kkt_error=kkt_error_on,
+                                parallel_riccati=False)
+    return it.SolverOptions(barrier=1e-3, max_step_norm=float("inf"),
+                            use_line_search=True,
+                            line_search_alphas=LS_TRIALS,
+                            line_search_filter_size=8,
+                            compute_kkt_error=kkt_error_on,
+                            parallel_riccati=False)
+
+
+def build(batch, n_horizon, dtype, device, seed=0, options=None):
     """The benchmark workload through the port's API: warm-started whole-body
     trot MPC for ANYmal with one touchdown in the horizon, `batch` perturbed
     scenarios sharing one schedule. Returns (bs, sol_b, q_b, v_b, sched)."""
@@ -419,9 +462,7 @@ def build(batch, n_horizon, dtype, device, seed=0):
         q_ref=q0)]
     cons = [it.JointTorquesLowerLimit(m), it.JointTorquesUpperLimit(m),
             it.FrictionCone(m, nc=4, mu=0.7)]
-    options = it.SolverOptions(barrier=1e-3, max_step_norm=1.0,
-                               use_line_search=False, compute_kkt_error=False,
-                               parallel_riccati=False)
+    options = options or options_for(False, False)
     solver = it.OCPSolver(m, cm, cost, cons, T=T_HORIZON, N=n_horizon,
                           options=options, dtype=dtype, device=device)
     sched = it.schedule_at(solver, it.TrotGait(t_start=0.1), feet, T0)
@@ -437,15 +478,29 @@ def build(batch, n_horizon, dtype, device, seed=0):
     return it.BatchedSolver(solver), sol_b, q_b, v_b, sched
 
 
+def reset_launches():
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_launches(config, updates):
+    """The wrappers' counts since ``reset_launches``; raises unless they are
+    those of ``updates`` updates of the named configuration."""
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    for name, per_update in LAUNCHES_PER_UPDATE[config].items():
+        if launches[name] != updates * per_update:
+            raise AssertionError(
+                f"{launches[name]} {name} launches in {updates} updates "
+                f"({config}), expected {per_update} each")
+    return launches
+
+
 def phase_main_path(gpu):
     bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32, "cuda")
     if sched.host_counts() != (1, 1):
         raise AssertionError(f"schedule counts {sched.host_counts()} != (1, 1)")
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"chol_tri_inv": ops.chol_tri_inv,
-                "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.time()
     sol_b, stats = bs.update(sol_b, T0, q_b, v_b, sched)      # warm-up
     torch.cuda.synchronize()
@@ -457,13 +512,8 @@ def phase_main_path(gpu):
         frozen = frozen + (stats.alpha_primal <= 0).sum()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    launches = read_launches("plain", ITERS + 1)
 
-    for name, per_update in LAUNCHES_PER_UPDATE.items():
-        if launches[name] != (ITERS + 1) * per_update:
-            raise AssertionError(
-                f"{launches[name]} {name} launches in {ITERS + 1} updates, "
-                f"expected {per_update} each")
     if not bool(torch.isfinite(stats.cost).all()):
         raise AssertionError("non-finite cost after the last update")
     if int(frozen) != 0:
@@ -499,8 +549,22 @@ def phase_split(gpu, state):
     split = {"linearize": 0.0, "terminal": 0.0, "condense": 0.0,
              "riccati_backward": 0.0, "rollout": 0.0, "whole_update": 0.0}
     reps = 5
+    # the line search's value-only pass alone: the current point as every
+    # trial of a (batch, trials) grid, flattened as the update flattens it
+    tile = lambda x: x[:, None].expand((BATCH, LS_TRIALS) + x.shape[1:]).reshape(
+        (BATCH * LS_TRIALS,) + x.shape[1:])
+    grid_sol, grid_q, grid_v = sol_b.map(tile), tile(q_b), tile(v_b)
+    # ... and the same pass on one trial per scenario: the same launches on an
+    # eighth of the data, so the difference is the device's share
+    evaluate_grid = evaluate_one_trial = 0.0
     with torch.no_grad():
         for _ in range(reps):
+            _, ms = timed(lambda: solver.evaluate_all(grid_sol, T0, grid_q,
+                                                      grid_v, sched))
+            evaluate_grid += ms / reps
+            _, ms = timed(lambda: solver.evaluate_all(sol_b, T0, q_b, v_b,
+                                                      sched))
+            evaluate_one_trial += ms / reps
             lin, ms = timed(lambda: solver.linearize_all(sol_b, T0, q_b, v_b, sched))
             split["linearize"] += ms / reps
             term, ms = timed(lambda: solver.terminal_fn(sol_b, T0))
@@ -535,19 +599,188 @@ def phase_split(gpu, state):
         for which in ("kernel", "plain", "plain", "kernel") * 5:
             factor[which].append(timed(both[which])[1])
     emit(phase="split_ms", gpu=gpu, **split,
+         evaluate_grid=evaluate_grid, evaluate_one_trial=evaluate_one_trial,
+         evaluate_grid_stages=BATCH * LS_TRIALS * N_HORIZON,
          g_factorization_shape=list(G.shape),
          g_factorization_kernel_ms=float(np.median(factor["kernel"])),
          g_factorization_plain_ms=float(np.median(factor["plain"])),
          g_factorization_runs=len(factor["kernel"]))
 
 
-def phase_accuracy(gpu):
+def timed_updates(bs, sol_b, q_b, v_b, sched, updates):
+    """One warm-up update, then ``updates`` timed ones (host clock, ending in
+    a synchronisation). Returns (solution, per-update stats, seconds,
+    warm-up seconds)."""
+    t0 = time.time()
+    sol_b, _ = bs.update(sol_b, T0, q_b, v_b, sched)
+    torch.cuda.synchronize()
+    warmup_s = time.time() - t0
+    history = []
+    t0 = time.time()
+    for _ in range(updates):
+        sol_b, stats = bs.update(sol_b, T0, q_b, v_b, sched)
+        history.append(stats)
+    torch.cuda.synchronize()
+    return sol_b, history, time.time() - t0, warmup_s
+
+
+def phase_line_search(gpu):
+    """The update with the filter line search at full width, its whole
+    (batch, trials) grid evaluated in one pass."""
+    bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32, "cuda",
+                                       options=options_for(True, False))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sol_b, history, wall, warmup_s = timed_updates(bs, sol_b, q_b, v_b, sched,
+                                                   ITERS)
+    launches = read_launches("line_search", ITERS + 1)
+    peak = torch.cuda.max_memory_allocated()
+
+    accepted = torch.stack([s.ls_accepted for s in history])
+    frozen = int(torch.stack([s.alpha_primal <= 0 for s in history]).sum())
+    picked = torch.stack([s.ls_trial for s in history])[accepted]
+    histogram = torch.bincount(picked, minlength=LS_TRIALS).tolist()
+    if not bool(torch.isfinite(history[-1].cost).all()):
+        raise AssertionError("non-finite cost after the last update")
+    if frozen != 0:
+        raise AssertionError(f"{frozen} frozen scenario-updates")
+
+    # the value path at alpha = 0 measures what the update measures
+    cost_eval, viol_eval = bs.solver.evaluate_all(sol_b, T0, q_b, v_b, sched)
+    _, stats = bs.update(sol_b, T0, q_b, v_b, sched)
+    cost0 = stats.cost + stats.barrier
+    cost_gap = ((cost_eval - cost0).abs() / (1 + cost0.abs())).max()
+    viol_gap = ((viol_eval - stats.violation).abs()
+                / (1 + stats.violation.abs())).max()
+    if not float(torch.maximum(cost_gap, viol_gap)) <= MERIT_TOL:
+        raise AssertionError(
+            f"evaluate_all differs from the update's merit pair: cost "
+            f"{float(cost_gap):.3e}, violation {float(viol_gap):.3e} above "
+            f"{MERIT_TOL:g} (1 + |value|)")
+    emit(phase="line_search", gpu=gpu, batch=BATCH, horizon=N_HORIZON,
+         dtype="float32", trials=LS_TRIALS, filter_size=8, iters=ITERS,
+         warmup_s=warmup_s, ms_per_update=1e3 * wall / ITERS,
+         solves_per_s=BATCH * ITERS / wall,
+         ls_accepted_share=float(accepted.float().mean()),
+         accepted_trial_histogram=histogram,
+         launches=launches,
+         launches_per_update={k: v // (ITERS + 1) for k, v in launches.items()},
+         grid_stages=BATCH * LS_TRIALS * N_HORIZON,
+         grid_impulse_slots=BATCH * LS_TRIALS * 4,
+         peak_memory_bytes=peak,
+         mean_cost=float(history[-1].cost.mean()),
+         merit_cost_gap=float(cost_gap), merit_violation_gap=float(viol_gap),
+         merit_tolerance=MERIT_TOL)
+    return launches, 1e3 * wall / ITERS
+
+
+def phase_kkt_and_solve(gpu, line_search_ms):
+    """The same problem with the KKT residual computed in every update:
+    (a) f32 at full width, (b) solve to tolerance in f64. Returns the
+    launches of both."""
+    options = options_for(True, True)
+    updates = 10
+    bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32, "cuda",
+                                       options=options)
+    reset_launches()
+    sol_b, history, wall, _ = timed_updates(bs, sol_b, q_b, v_b, sched, updates)
+    launches = read_launches("line_search", updates + 1)
+    kkt = torch.stack([s.kkt_error for s in history])
+    if not bool(torch.isfinite(kkt).all()):
+        raise AssertionError("non-finite KKT error in the f32 updates")
+    emit(phase="kkt_and_solve", part="updates_f32", gpu=gpu, batch=BATCH,
+         horizon=N_HORIZON, dtype="float32", updates=updates,
+         ms_per_update=1e3 * wall / updates,
+         ms_per_update_without_kkt_error=line_search_ms,
+         median_kkt_error_per_update=kkt.median(dim=1).values.tolist(),
+         launches=launches)
+    del bs, sol_b, history
+
+    problems = {
+        device: build(SOLVE_BATCH, N_HORIZON, torch.float64, device,
+                      options=options)
+        for device in ("cuda", "cpu")}
+    total = dict(launches)
+    for tol in SOLVE_TOLS:
+        solve_launches = solve_on_card_and_cpu(gpu, problems, tol)
+        total = {k: total[k] + solve_launches[k] for k in total}
+    return total
+
+
+def solve_on_card_and_cpu(gpu, problems, tol):
+    """``BatchedSolver.solve`` to ``tol`` in f64 on the card; its first
+    scenarios again on the CPU; both held against each other."""
+    out = {}
+    for device, n in (("cuda", SOLVE_BATCH), ("cpu", CPU_SCENARIOS)):
+        bs, sol_b, q_b, v_b, sched = problems[device]
+        sol_b, q_b, v_b = sol_b.map(lambda x: x[:n]), q_b[:n], v_b[:n]
+        if device == "cuda":
+            first_kkt = bs.kkt_error(sol_b, T0, q_b, v_b, sched)
+            reset_launches()
+            torch.cuda.synchronize()
+        t0 = time.time()
+        sol_b, iters, kkt, done = bs.solve(sol_b, T0, q_b, v_b, sched, tol=tol,
+                                           max_iterations=SOLVE_CAP)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            # the loop ran one iteration for each flag it read, and the first
+            host_reads = bs.solver.host_reads
+            loops = host_reads + 1
+            launches = read_launches("line_search", loops)
+        out[device] = (sol_b.u[:, 0].cpu(), iters.cpu(), kkt.cpu(), done.cpu())
+
+    (u0_g, it_g, kkt_g, done_g), (u0_c, it_c, kkt_c, done_c) = (
+        out["cuda"], out["cpu"])
+    n = CPU_SCENARIOS
+    if not bool(torch.isfinite(kkt_g).all() and torch.isfinite(kkt_c).all()):
+        raise AssertionError("non-finite KKT error after solve")
+    if not bool((done_g[:n] == done_c).all()):
+        raise AssertionError(f"converged differs: card {done_g[:n].tolist()}, "
+                             f"CPU {done_c.tolist()}")
+    # equal iteration counts, or off by one where the KKT error of the
+    # deciding iterate lies within round-off of the tolerance
+    off = (it_g[:n] - it_c).abs()
+    near = torch.minimum((kkt_g[:n] - tol).abs(),
+                         (kkt_c - tol).abs()) <= 1e-3 * tol
+    if not bool(((off == 0) | ((off == 1) & near)).all()):
+        raise AssertionError(
+            f"iterations differ: card {it_g[:n].tolist()} kkt "
+            f"{kkt_g[:n].tolist()}, CPU {it_c.tolist()} kkt {kkt_c.tolist()}")
+    u0_err = float((u0_g[:n] - u0_c).abs().max())
+    if not u0_err <= SOLVE_U0_TOL:
+        raise AssertionError(f"max|u0_card - u0_cpu| after solve = "
+                             f"{u0_err:.3e} above {SOLVE_U0_TOL:g}")
+    drop = float(first_kkt.median()) / float(kkt_g.median())
+    if not drop >= 1e2:
+        raise AssertionError(f"median KKT error fell only {drop:.3g}x")
+    emit(phase="kkt_and_solve", part="solve_f64", gpu=gpu, batch=SOLVE_BATCH,
+         horizon=N_HORIZON, dtype="float64", tol=tol,
+         max_iterations=SOLVE_CAP, loop_iterations=loops,
+         ms_per_iteration=1e3 * seconds / loops, solve_seconds=seconds,
+         host_reads=host_reads, host_reads_per_iteration=host_reads / loops,
+         converged_share=float(done_g.float().mean()),
+         iteration_histogram=torch.bincount(
+             it_g.long(), minlength=SOLVE_CAP + 1).tolist(),
+         median_kkt_error_first=float(first_kkt.median()),
+         median_kkt_error_last=float(kkt_g.median()),
+         max_kkt_error_last=float(kkt_g.max()),
+         cpu_scenarios=n, iterations_card=it_g[:n].tolist(),
+         iterations_cpu=it_c.tolist(), off_by_one=int((off == 1).sum()),
+         max_abs_u0_err=u0_err, u0_tolerance=SOLVE_U0_TOL,
+         launches=launches)
+    return launches
+
+
+def phase_accuracy(gpu, line_search_on):
     """The first scenarios through the port in f32 on the card and in f64 on
     the CPU, same inputs, 5 warm-started updates each side."""
     n = 8
     u0 = {}
     for dtype, device in ((torch.float32, "cuda"), (torch.float64, "cpu")):
-        bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, dtype, device)
+        bs, sol_b, q_b, v_b, sched = build(
+            BATCH, N_HORIZON, dtype, device,
+            options=options_for(line_search_on, False))
         sol_b = sol_b.map(lambda x: x[:n])
         for _ in range(5):
             sol_b, _ = bs.update(sol_b, T0, q_b[:n], v_b[:n], sched)
@@ -556,8 +789,8 @@ def phase_accuracy(gpu):
     if not err <= U0_TOL:
         raise AssertionError(f"max|u0_f32_cuda - u0_f64_cpu| = {err:.3e} "
                              f"above {U0_TOL:g}")
-    emit(phase="accuracy", gpu=gpu, scenarios=n, updates=5,
-         max_abs_u0_err=err, tolerance=U0_TOL,
+    emit(phase="accuracy", gpu=gpu, line_search=line_search_on, scenarios=n,
+         updates=5, max_abs_u0_err=err, tolerance=U0_TOL,
          u0_scale=float(u0["cpu"].abs().max()))
 
 
@@ -584,7 +817,12 @@ def main():
     launches, state = phase_main_path(gpu)
     phase_split(gpu, state)
     del state
-    phase_accuracy(gpu)
+    ls_launches, ls_ms = phase_line_search(gpu)
+    solve_launches = phase_kkt_and_solve(gpu, ls_ms)
+    launches = {k: launches[k] + ls_launches[k] + solve_launches[k]
+                for k in launches}
+    phase_accuracy(gpu, line_search_on=False)
+    phase_accuracy(gpu, line_search_on=True)
 
     print(gpu)
     kernels = []

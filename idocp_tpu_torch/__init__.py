@@ -3,20 +3,26 @@
 Same sub-packages and module names as the JAX package; every module's
 docstring names its twin file. The port imports ``torch`` and numpy only.
 Entry points take an explicit ``device`` and ``dtype``, default to
-``device="cuda"`` and raise when there is no card. Ported so far: the batched
-whole-body trot-MPC Newton update (``OCPSolver`` / ``BatchedSolver.update``
-without line search) and everything below it, down to the hand-written CUDA
-kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``.
+``device="cuda"`` and raise when there is no card. Ported so far: the
+whole-body ``OCPSolver`` with a serial Riccati sweep (Newton update with the
+filter line search and the KKT residual, ``solve`` with barrier continuation,
+the LQR policy, impulse cost and impulse constraints), ``BatchedSolver`` on a
+schedule shared by the batch, and everything below them, down to the
+hand-written CUDA kernel behind ``ops.chol_tri_inv`` and
+``ops.chol_rescue_tri_inv``.
 """
-from .constraints.components import (ConstraintComponent, FrictionCone,
+from .constraints.components import (ConstraintComponent, ContactNormalForce,
+                                     FrictionCone, ImpulseConstraintComponent,
+                                     ImpulseFrictionCone, ImpulseNormalForce,
                                      JointTorquesLowerLimit,
                                      JointTorquesUpperLimit)
 from .cost.base import CostComponent
-from .cost.components import ConfigurationSpaceCost
+from .cost.components import ConfigurationSpaceCost, ImpulseCost
 from .hybrid.schedule import (ContactSequence, DiscreteEvent, HorizonSchedule,
                               static_schedule)
 from .ocp.data import Solution, zero_solution
 from .parallel.batch import BatchedSolver, batch_solution
+from .riccati.recursion import LQRPolicy
 from .robot.contact import ContactModel
 from .robot.model import ModelBuilder, RobotModel, difference, integrate
 from .robot.urdf import load_urdf
@@ -28,10 +34,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ModelBuilder", "RobotModel", "difference", "integrate", "load_urdf",
-    "ContactModel", "CostComponent", "ConfigurationSpaceCost",
-    "ConstraintComponent", "FrictionCone", "JointTorquesLowerLimit",
-    "JointTorquesUpperLimit", "ContactSequence", "DiscreteEvent",
-    "HorizonSchedule", "static_schedule", "Solution", "zero_solution",
-    "SolverOptions", "OCPSolver", "TrotGait", "schedule_at", "BatchedSolver",
-    "batch_solution",
+    "ContactModel", "CostComponent", "ConfigurationSpaceCost", "ImpulseCost",
+    "ConstraintComponent", "FrictionCone", "ContactNormalForce",
+    "JointTorquesLowerLimit", "JointTorquesUpperLimit",
+    "ImpulseConstraintComponent", "ImpulseFrictionCone", "ImpulseNormalForce",
+    "ContactSequence", "DiscreteEvent", "HorizonSchedule", "static_schedule",
+    "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
+    "OCPSolver", "TrotGait", "schedule_at", "BatchedSolver", "batch_solution",
 ]

@@ -1,7 +1,9 @@
 """Inequality-constraint components on the trot-MPC path.
 
 Twin of ``idocp_tpu/constraints/components.py`` (``JointTorquesLowerLimit``,
-``JointTorquesUpperLimit``, ``FrictionCone``). Each component defines
+``JointTorquesUpperLimit``, ``FrictionCone``, ``ContactNormalForce`` and the
+impulse variants ``ImpulseFrictionCone``, ``ImpulseNormalForce``). Each
+component defines
 g(z) <= 0 of fixed dimension with Jacobians per variable block; the
 interior-point fold-in happens in the stage assembly. Arguments may carry
 leading dimensions; Jacobians that do not depend on the state are returned
@@ -62,6 +64,38 @@ class JointTorquesUpperLimit(ConstraintComponent):
             "u": torch.eye(m.nu, dtype=u.dtype, device=u.device)}
 
 
+def _per_contact_rows(grad):
+    """Per-contact gradients (..., nc, 3) on the block diagonal of a
+    (..., nc, 3 nc) Jacobian."""
+    nc = grad.shape[-2]
+    eye = torch.eye(nc, dtype=grad.dtype, device=grad.device)[:, :, None]
+    return (eye * grad[..., None, :, :]).reshape(grad.shape[:-2] + (nc, 3 * nc))
+
+
+def _cone(fc, active, mu):
+    """Quadratic cone f_x^2 + f_y^2 - mu^2 f_z^2 on (..., nc, 3) with its
+    gradient; rows off ``active`` are the feasible constant (g = -1, grad 0)."""
+    mu2 = mu ** 2
+    g = fc[..., 0] ** 2 + fc[..., 1] ** 2 - mu2 * fc[..., 2] ** 2
+    grad = torch.stack(
+        [2 * fc[..., 0], 2 * fc[..., 1], -2 * mu2 * fc[..., 2]], dim=-1)
+    g = torch.where(active, g, -torch.ones_like(g))
+    grad = torch.where(active[..., None], grad, torch.zeros_like(grad))
+    return g, _per_contact_rows(grad)
+
+
+def _normal(fc, active, fz_min):
+    """fz_min - f_z on (..., nc, 3) with its gradient, masked as ``_cone``."""
+    g = torch.where(active, fz_min - fc[..., 2], -torch.ones_like(fc[..., 2]))
+    grad = torch.zeros_like(fc)
+    grad[..., 2] = -active.to(fc.dtype)
+    return g, _per_contact_rows(grad)
+
+
+def _per_contact(x, nc):
+    return x.reshape(x.shape[:-1] + (nc, 3))
+
+
 @dataclasses.dataclass(frozen=True)
 class FrictionCone(ConstraintComponent):
     """f_x^2 + f_y^2 - mu^2 f_z^2 <= 0 per active contact (quadratic cone).
@@ -76,16 +110,75 @@ class FrictionCone(ConstraintComponent):
         return self.nc
 
     def evaluate(self, ctx, q, v, a, f, u, fmask):
-        nc = self.nc
-        fc = f.reshape(f.shape[:-1] + (nc, 3))
-        active = fmask.reshape(fmask.shape[:-1] + (nc, 3))[..., 0] != 0
-        mu2 = self.mu ** 2
-        g = fc[..., 0] ** 2 + fc[..., 1] ** 2 - mu2 * fc[..., 2] ** 2
-        grad = torch.stack(
-            [2 * fc[..., 0], 2 * fc[..., 1], -2 * mu2 * fc[..., 2]], dim=-1)
-        g = torch.where(active, g, -torch.ones_like(g))
-        grad = torch.where(active[..., None], grad, torch.zeros_like(grad))
-        # per-contact gradients on the block diagonal of (nc, 3*nc)
-        eye = torch.eye(nc, dtype=f.dtype, device=f.device)[:, :, None]
-        J = (eye * grad[..., None, :, :]).reshape(grad.shape[:-2] + (nc, 3 * nc))
+        g, J = _cone(_per_contact(f, self.nc),
+                     _per_contact(fmask, self.nc)[..., 0] != 0, self.mu)
         return g, {"f": J}
+
+
+@dataclasses.dataclass(frozen=True)
+class ContactNormalForce(ConstraintComponent):
+    """-f_z <= 0 per active contact (normal force positivity)."""
+    model: object
+    nc: int
+    fz_min: float = 0.0
+    name: str = "normal_force"
+
+    @property
+    def dim(self):
+        return self.nc
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        g, J = _normal(_per_contact(f, self.nc),
+                       _per_contact(fmask, self.nc)[..., 0] != 0, self.fz_min)
+        return g, {"f": J}
+
+
+class ImpulseConstraintComponent:
+    """g(Lambda) <= 0 on the impact impulse at impulse stages.
+
+    Lambda is eliminated (an explicit function of the pre-impulse state via
+    the impulse map), so these constraints chain through the impulse-map
+    Jacobians Lx = [Lq, Lv] inside the stage assembly rather than through the
+    named-variable space. evaluate_lam(lam (..., nf), gate (..., nc)) returns
+    (g, dg/dLambda) with rows mask-gated to a feasible constant (g = -1,
+    grad = 0) wherever the stage is not an impulse stage or the contact does
+    not impact."""
+
+    name: str
+    dim: int
+    impulse = True
+
+    def evaluate_lam(self, lam, gate):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpulseFrictionCone(ImpulseConstraintComponent):
+    """Lambda_x^2 + Lambda_y^2 - mu^2 Lambda_z^2 <= 0 per impacting contact."""
+    model: object
+    nc: int
+    mu: float = 0.7
+    name: str = "impulse_friction_cone"
+
+    @property
+    def dim(self):
+        return self.nc
+
+    def evaluate_lam(self, lam, gate):
+        return _cone(_per_contact(lam, self.nc), gate > 0.5, self.mu)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpulseNormalForce(ImpulseConstraintComponent):
+    """-Lambda_z <= 0 per impacting contact (the impact impulse must push)."""
+    model: object
+    nc: int
+    lz_min: float = 0.0
+    name: str = "impulse_normal_force"
+
+    @property
+    def dim(self):
+        return self.nc
+
+    def evaluate_lam(self, lam, gate):
+        return _normal(_per_contact(lam, self.nc), gate > 0.5, self.lz_min)

@@ -2,8 +2,8 @@
 
 No JAX twin. Each ``*_from_numpy`` takes a dict of numpy arrays keyed by the
 field names of the corresponding dataclass (plus, for a model, its static
-metadata), so a model, a solution or a schedule made by either package can be
-handed to the other and both compute the same thing. The ``*_to_numpy``
+metadata), so a model, a solution, a schedule or an LQR policy made by either
+package can be handed to the other and both compute the same thing. The ``*_to_numpy``
 functions are the inverses. Nothing here imports JAX: whoever holds JAX arrays
 converts them with ``numpy.asarray`` first.
 """
@@ -17,11 +17,13 @@ import torch
 from .hybrid.schedule import TENSOR_FIELDS as SCHEDULE_FIELDS
 from .hybrid.schedule import HorizonSchedule, schedule_from_arrays
 from .ocp.data import Solution
+from .riccati.recursion import LQRPolicy
 from .robot.model import META_FIELDS as MODEL_META_FIELDS
 from .robot.model import TENSOR_FIELDS as MODEL_TENSOR_FIELDS
 from .robot.model import RobotModel, resolve_device
 
 SOLUTION_FIELDS = tuple(f.name for f in dataclasses.fields(Solution))
+POLICY_FIELDS = tuple(f.name for f in dataclasses.fields(LQRPolicy))
 
 
 def _np(x):
@@ -77,3 +79,14 @@ def schedule_from_numpy(d: dict, dtype=torch.float64,
 
 def schedule_to_numpy(sched: HorizonSchedule) -> dict:
     return {k: _np(getattr(sched, k)) for k in SCHEDULE_FIELDS}
+
+
+def policy_from_numpy(d: dict, dtype=torch.float64, device="cuda") -> LQRPolicy:
+    device = resolve_device(device)
+    return LQRPolicy(**{k: torch.as_tensor(np.asarray(d[k], dtype=np.float64),
+                                           dtype=dtype, device=device)
+                        for k in POLICY_FIELDS})
+
+
+def policy_to_numpy(pol: LQRPolicy) -> dict:
+    return {k: _np(getattr(pol, k)) for k in POLICY_FIELDS}

@@ -1,8 +1,9 @@
 """Concrete cost components on the trot-MPC path.
 
-Twin of ``idocp_tpu/cost/components.py`` (``ConfigurationSpaceCost``). The
-twin differentiates the Lie difference q (-) q_ref by forward-mode autodiff;
-here the Jacobian is the closed form ``robot.model.difference_jacobian``.
+Twin of ``idocp_tpu/cost/components.py`` (``ConfigurationSpaceCost``,
+``ImpulseCost``). The twin differentiates the Lie difference q (-) q_ref by
+forward-mode autodiff; here the Jacobian is the closed form
+``robot.model.difference_jacobian``.
 """
 from __future__ import annotations
 
@@ -63,3 +64,16 @@ class ConfigurationSpaceCost(CostComponent):
         val_v, lv, Qvv = weighted_diff_quad(self.vf_weight, v - vr)
         return BlockQuad(value=val + val_v, l={"q": lq, "v": lv},
                          Q={("q", "q"): Qqq, ("v", "v"): Qvv})
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpulseCost:
+    """Impulse-stage cost on the impact quantities: quadratic weights on the
+    velocity jump dv = v+ - v- and on the impact impulse Lambda.
+
+    (dv, Lambda) are eliminated exactly as functions of the pre-impulse state
+    (state_equation.impulse_map), so this cost contributes directly in stage
+    x-space through the impulse-map Jacobians, see
+    ``ocp.stage.linearize_contact_stage``. Gated by the stage impulse mask."""
+    dv_weight: torch.Tensor   # (nv,) quadratic weight on v+ - v-
+    lam_weight: torch.Tensor  # (nf,) quadratic weight on Lambda

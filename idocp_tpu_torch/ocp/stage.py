@@ -12,12 +12,14 @@ chain products then map named-space quantities into the stage's (x, w)
 layout, w = (a, f, u), eliminated (a, f), control u, including the
 impulse-map Jacobians (Gq, Gv).
 
-Left out against the twin: the dense named-space matrices ``E_named``,
-``C_named``, ``F_named``, ``Tx``, ``Tw``, ``lnamed``, ``lx_extra`` and
-``E_we``, which only feed the KKT-residual norm (not ported yet; eager
-PyTorch would compute them on every stage of every update); the
-``impulse_cost`` / ``impulse_constraints`` branches; the unconstrained
-fixed-base stage and the value-only evaluations of the line search.
+The dense named-space blocks that only feed the KKT-residual norm
+(``lnamed``, ``lx_extra``, ``E_named``, ``F_named``, ``C_named``) are
+computed only when the caller asks for them (``named_blocks=True``): the twin
+leaves their removal on the hot path to the compiler, eager PyTorch would
+compute them on every stage of every update. The dense chain matrices
+``Tx`` / ``Tw`` and ``E_we`` are never formed: the chain is applied
+structurally from (Gq, Gv). Left out against the twin: the unconstrained
+fixed-base stage.
 
 Numerical-robustness invariants (f32 hot path): no dense matrix inverse
 anywhere (the contact block is factorized by Cholesky + SPD Schur
@@ -27,7 +29,7 @@ against the already-computed factorization.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -37,8 +39,9 @@ from ..robot import spatial
 from ..robot.contact import ContactModel
 from ..robot.model import RobotModel
 from .data import StageQuad, TensorStruct
-from .state_equation import (contact_solve, factors_from_mj, mask3_of,
-                             mass_and_contact_jacobian_fk, transition_blocks)
+from .state_equation import (contact_solve, factors_from_mj, impulse_map,
+                             mask3_of, mass_and_contact_jacobian_fk,
+                             transition_blocks)
 
 _ORDER = ("q", "v", "a", "f", "u")
 
@@ -66,6 +69,17 @@ class StageLin(TensorStruct):
     sw_mask: torch.Tensor
     g: Dict[str, torch.Tensor]       # per-constraint-component values
     Jz: Dict[str, torch.Tensor]      # per-component Jacobians over (x|w)
+    # what only the KKT residual reads, None unless asked for: the cost
+    # gradient before the interior-point terms, the x-space gradient of the
+    # impulse cost, the dynamics / switching / state equalities in named
+    # space, and the impulse-map Jacobians (the chain named (q, v) <- x)
+    lnamed: Optional[torch.Tensor] = None
+    lx_extra: Optional[torch.Tensor] = None
+    E_named: Optional[torch.Tensor] = None
+    C_named: Optional[torch.Tensor] = None
+    F_named: Optional[torch.Tensor] = None
+    Gq: Optional[torch.Tensor] = None
+    Gv: Optional[torch.Tensor] = None
 
 
 def _ord(name):
@@ -280,13 +294,16 @@ def linearize_contact_stage(
         model: RobotModel, cm: ContactModel, costs, constraints, options,
         t, dt, q, v, a, f, u, q_next, v_next, slack, dual,
         contact_active, p_ref, imp_mask, imp_contact,
-        sw_contact, sw_pos, ctx=None, imp_quants=None) -> StageLin:
+        sw_contact, sw_pos, ctx=None, impulse_cost=None,
+        impulse_constraints=(), imp_quants=None,
+        named_blocks=False) -> StageLin:
     """Linearize + condense whole-body stages.
 
     imp_quants: optional precomputed (v_eff, lam, Gq, Gv, Lq, Lv) from the
     solver's impulse-slot gather (only the few stages that can carry an
     impulse run the implicit-derivative sweep; the default recomputes it on
-    every stage)."""
+    every stage). named_blocks: also return the raw named-space blocks the
+    KKT residual reads."""
     nv, nf, nu = model.nv, cm.max_dimf, model.nu
     nx = 2 * nv
     lead = q.shape[:-1]
@@ -302,7 +319,7 @@ def linearize_contact_stage(
     if imp_quants is None:
         imp_quants = _impulse_quantities(
             model, cm, q, v, imp_mask, imp_contact, mj, fkb)
-    v_eff, _, Gq, Gv, _, _ = imp_quants
+    v_eff, lam, Gq, Gv, Lq, Lv = imp_quants
 
     # ---- costs in named BLOCK space (one dense assembly at the end)
     fmask = mask3_of(contact_active, q.dtype)
@@ -331,7 +348,7 @@ def linearize_contact_stage(
     H = _assemble_mat(Hb, sizes, lead, kw)
 
     # ---- contact-block factorization (shared: elimination, duals)
-    LM, LS, Jm, _, _ = factors_from_mj(*mj, contact_active)
+    LM, LS, Jm, m3, M = factors_from_mj(*mj, contact_active)
 
     # ---- dynamics equality in named space
     e, Dq, Dv = _dynamics_blocks(
@@ -360,16 +377,51 @@ def linearize_contact_stage(
 
     Hx = chain_x(H[..., :, :nv], H[..., :, nv:nx])       # (..., nn, nx)
     Qxx = chain_xT(Hx)
+    Qxx = 0.5 * (Qxx + Qxx.mT)
+    lx = chain_xT(lcond[..., :, None])[..., 0]
+    zeros = lambda r, c: torch.zeros(lead + (r, c), **kw)
+    I_v = torch.eye(nv, **kw).expand(lead + (nv, nv))
+    lx_extra = None
+
+    # ---- impulse-stage cost on (dv, Lambda) in x-space
+    if impulse_cost is not None:
+        dvi = v_eff - v                     # masked already (= m dv0)
+        Jdv = torch.cat([Gq, Gv - I_v], dim=-1)          # (..., nv, nx)
+        Lx = torch.cat([Lq, Lv], dim=-1)                 # (..., nf, nx)
+        w_dv, w_lm = impulse_cost.dv_weight, impulse_cost.lam_weight
+        val = val + (0.5 * torch.sum(w_dv * dvi * dvi, dim=-1)
+                     + 0.5 * torch.sum(w_lm * lam * lam, dim=-1))
+        lx_extra = _mv(Jdv.mT, w_dv * dvi) + _mv(Lx.mT, w_lm * lam)
+        lx = lx + lx_extra
+        Qxx = (Qxx + Jdv.mT @ (w_dv[:, None] * Jdv)
+               + Lx.mT @ (w_lm[:, None] * Lx))
+
+    # ---- impulse-stage constraints on Lambda. Lambda is an explicit
+    # function of x, so these condense in x-space through the impulse-map
+    # Jacobian Lx = [Lq, Lv]; the (x|w)-space Jacobians [Jg Lx, 0] feed the
+    # shared slack/dual expansion and the KKT residual.
+    Jxw_imp = {}
+    if impulse_constraints:
+        Lx = torch.cat([Lq, Lv], dim=-1)
+        gate = imp_mask.to(q.dtype)[..., None] * imp_contact.to(q.dtype)
+        for comp in impulse_constraints:
+            g_i, dgdlam = comp.evaluate_lam(lam, gate)
+            Jx_i = dgdlam @ Lx                           # (..., dim, nx)
+            s_, d_ = slack[comp.name], dual[comp.name]
+            sigma, rhs = pdipm.condense_terms(g_i, s_, d_, options.barrier)
+            Qxx = Qxx + Jx_i.mT @ (sigma[..., :, None] * Jx_i)
+            lx = lx + _mv(Jx_i.mT, rhs)
+            barrier = barrier + pdipm.barrier_value(s_, options.barrier)
+            g_all[comp.name] = g_i
+            Jxw_imp[comp.name] = torch.cat(
+                [Jx_i, zeros(comp.dim, nv + nf + nu)], dim=-1)
+
     quad = StageQuad(
-        value=val,
-        lx=chain_xT(lcond[..., :, None])[..., 0], lw=lcond[..., nx:],
-        Qxx=0.5 * (Qxx + Qxx.mT), Qxw=chain_xT(H[..., :, nx:]),
-        Qww=H[..., nx:, nx:],
+        value=val, lx=lx, lw=lcond[..., nx:],
+        Qxx=Qxx, Qxw=chain_xT(H[..., :, nx:]), Qww=H[..., nx:, nx:],
     )
     E_x = chain_x(Dq, Dv)
     E_wk = _control_block(model, cm)
-    zeros = lambda r, c: torch.zeros(lead + (r, c), **kw)
-    I_v = torch.eye(nv, **kw).expand(lead + (nv, nv))
     dtm = dt[..., None, None]
     F_x = torch.cat([chain_x(Aq_q, Aq_v), torch.cat([Gq, Gv], dim=-1)], dim=-2)
     F_w = torch.cat([torch.cat([Aq_a, zeros(nv, nf + nu)], dim=-1),
@@ -379,6 +431,7 @@ def linearize_contact_stage(
     Jz = {k: torch.cat([chain_x(Jn_[..., :, :nv], Jn_[..., :, nv:nx]),
                         Jn_[..., :, nx:]], dim=-1)
           for k, Jn_ in Jn_all.items()}
+    Jz.update(Jxw_imp)  # impulse-Lambda constraints: already in (x|w) space
 
     # ---- elimination operators: w_e = T_x x + T_k u + t0 with
     # E_we w_e = -(E_x x + E_wk u + e); E_we IS the factorized contact
@@ -388,6 +441,26 @@ def linearize_contact_stage(
     Xs, Ys = contact_solve(LM, LS, Jm, R[..., :nv, :], R[..., nv:, :])
     Tmat = torch.cat([Xs, Ys], dim=-2)   # (..., nv+nf, nx+nu+1)
 
+    named = {}
+    if named_blocks:
+        # the (a, f) block of the dynamics equality is the contact block
+        # matrix [[M, -Jm^T], [Jm, Sigma]], its u block the control block
+        E_af = torch.cat([torch.cat([M, -Jm.mT], dim=-1),
+                          torch.cat([Jm, torch.diag_embed(1.0 - m3)], dim=-1)],
+                         dim=-2)
+        named = dict(
+            lnamed=_assemble_vec(lb, sizes, lead, kw),
+            lx_extra=(torch.zeros(lead + (nx,), **kw) if lx_extra is None
+                      else lx_extra),
+            E_named=torch.cat([Dq, Dv, E_af, E_wk.expand(lead + E_wk.shape)],
+                              dim=-1),
+            C_named=torch.cat([Cq, Cv, Ca, zeros(nf, nf + nu)], dim=-1),
+            F_named=torch.cat(
+                [torch.cat([Aq_q, Aq_v, Aq_a, zeros(nv, nf + nu)], dim=-1),
+                 torch.cat([zeros(nv, nv), I_v, dtm * I_v, zeros(nv, nf + nu)],
+                           dim=-1)], dim=-2),
+            Gq=Gq, Gv=Gv)
+
     return StageLin(
         quad=quad, cost=val, barrier=barrier,
         E_x=E_x, e=e,
@@ -395,20 +468,134 @@ def linearize_contact_stage(
         fac_LM=LM, fac_LS=LS, fac_Jm=Jm,
         F_x=F_x, F_w=F_w, xres=xres,
         Cx_raw=Cx_raw, Cw_raw=Cw_raw, h=h, sw_mask=swm3,
-        g=g_all, Jz=Jz,
+        g=g_all, Jz=Jz, **named,
     )
+
+
+def chain_to_x(Gq, Gv, X):
+    """The transposed chain named (q, v) <- x applied to a named-space vector
+    X (..., nn): [X_q + Gq^T X_v ; Gv^T X_v]. The chain matrix over x is
+    [[I, 0], [Gq, Gv], [0, 0]], so no dense matrix is formed."""
+    nv = Gq.shape[-1]
+    Xv = X[..., nv:2 * nv]
+    return torch.cat([X[..., :nv] + _mv(Gq.mT, Xv), _mv(Gv.mT, Xv)], dim=-1)
+
+
+def evaluate_contact_stage(
+        model: RobotModel, cm: ContactModel, costs, constraints, options,
+        t, dt, q, v, a, f, u, q_next, v_next, slack,
+        contact_active, p_ref, imp_mask, imp_contact,
+        sw_contact, sw_pos, ctx=None, impulse_cost=None,
+        impulse_constraints=(), imp_values=None):
+    """Value-only stage evaluation for line-search trials: (cost + barrier,
+    L1 constraint violation), each of the leading shape. No Jacobians: cheap
+    enough to run on the whole grid of trial step sizes at once.
+
+    imp_values: optional precomputed (v_eff, lam) from the solver's
+    impulse-slot gather; the default runs the impulse map on every stage."""
+    nv, nc = model.nv, cm.nc
+    lead = q.shape[:-1]
+    kw = dict(dtype=q.dtype, device=q.device)
+
+    # shared FK bundle for the whole value-only evaluation
+    fkb = spatial.fk(model, q)
+
+    # impulse gate (values only; or slot-precomputed)
+    m = imp_mask.to(q.dtype)[..., None]
+    if imp_values is None:
+        vpost, lam0 = impulse_map(model, cm, q, v, imp_contact, fkb=fkb)
+        v_eff, lam = v + m * (vpost - v), m * lam0
+    else:
+        v_eff, lam = imp_values
+
+    fmask = mask3_of(contact_active, q.dtype)
+    cost = torch.zeros(lead, **kw)
+    for c in costs:
+        cost = cost + c.stage(ctx, t, dt, q, v_eff, a, f, u, fmask).value
+    if impulse_cost is not None:
+        dvi = v_eff - v
+        cost = cost + (
+            0.5 * torch.sum(impulse_cost.dv_weight * dvi * dvi, dim=-1)
+            + 0.5 * torch.sum(impulse_cost.lam_weight * lam * lam, dim=-1))
+
+    barrier = torch.zeros(lead, **kw)
+    viol = torch.zeros(lead, **kw)
+    l1 = lambda x: x.abs().sum(dim=-1)
+    for comp in constraints:
+        g, _ = comp.evaluate(ctx, q, v_eff, a, f, u, fmask)
+        barrier = barrier + pdipm.barrier_value(slack[comp.name],
+                                                options.barrier)
+        # actual infeasibility only (NOT |g + s|): the slack-slaving error is
+        # cancelled linearly by the Newton step itself, and counting it
+        # injects the cone's quadratic curvature into the filter measure,
+        # capping accepted steps at about viol / |df|^2
+        viol = viol + torch.clamp(g, min=0.0).sum(dim=-1)
+    for comp in impulse_constraints:
+        g_i, _ = comp.evaluate_lam(lam, m * imp_contact.to(q.dtype))
+        barrier = barrier + pdipm.barrier_value(slack[comp.name],
+                                                options.barrier)
+        viol = viol + torch.clamp(g_i, min=0.0).sum(dim=-1)
+
+    # dynamics equality residuals (inverse dynamics + Baumgarte), value-only
+    fm = (fmask * f).reshape(lead + (nc, 3))
+    p_f, fb = spatial.frame_points(model, fkb, cm.frame_ids)
+    fext = spatial.contact_forces_to_body(model, p_f, fb, fm)
+    mo = spatial.motion(model, fkb, v_eff, a, derivatives=False)
+    tau, _, _ = spatial.rnea(model, fkb, mo, fext)
+    id_res = tau - torch.cat([torch.zeros(lead + (nv - model.nu,), **kw), u],
+                             dim=-1)
+    pos, vel, acc = spatial.point_pva(model, mo, p_f, fb)
+    baum = (acc + cm.kd * vel + cm.kp * (pos - p_ref)).reshape(lead + (3 * nc,))
+    baum = fmask * baum + (1.0 - fmask) * f
+    viol = viol + l1(id_res) + l1(baum)
+
+    # state equation residuals
+    dtc = dt[..., None]
+    qp = model_mod.integrate(model, q, dtc * (v_eff + dtc * a))
+    viol = (viol + l1(model_mod.difference(model, q_next, qp))
+            + l1(v_eff + dtc * a - v_next))
+
+    # switching constraint residual (masked)
+    pos_sw, _ = spatial.frame_points(model, spatial.fk(model, qp), cm.frame_ids)
+    h = mask3_of(sw_contact, q.dtype) * (pos_sw - sw_pos).reshape(
+        lead + (3 * nc,))
+    return cost + barrier, viol + l1(h)
+
+
+def evaluate_terminal(model, costs, constraints, options, t, q, v, slack,
+                      ctx=None):
+    """Value-only terminal evaluation (cost + barrier, violation)."""
+    lead = q.shape[:-1]
+    kw = dict(dtype=q.dtype, device=q.device)
+    cost = torch.zeros(lead, **kw)
+    for c in costs:
+        cost = cost + c.terminal(ctx, t, q, v).value
+    barrier = torch.zeros(lead, **kw)
+    viol = torch.zeros(lead, **kw)
+    za = torch.zeros(lead + (model.nv,), **kw)
+    zu = torch.zeros(lead + (model.nu,), **kw)
+    zf = torch.zeros(lead + (0,), **kw)
+    for comp in constraints:
+        if not comp.is_terminal():
+            continue
+        g, _ = comp.evaluate(ctx, q, v, za, zf, zu, zf)
+        barrier = barrier + pdipm.barrier_value(slack[comp.name],
+                                                options.barrier)
+        viol = viol + torch.clamp(g, min=0.0).sum(dim=-1)
+    return cost + barrier, viol
 
 
 def terminal_quad(model, costs, constraints, options, t, q, v, slack, dual,
                   ctx=None):
     """Terminal-stage quadratic model, including terminal-applicable
-    inequality components: (value, l, H, barrier, g, Jz) over x = (dq, dv)."""
+    inequality components: (value, l, H, barrier, g, Jz, lraw) over
+    x = (dq, dv), lraw the cost gradient before the interior-point terms."""
     nv = model.nv
     lead = q.shape[:-1]
     kw = dict(dtype=q.dtype, device=q.device)
     sizes = [("q", nv), ("v", nv)]
     val, lb, Hb = _accumulate_blocks([c.terminal(ctx, t, q, v) for c in costs])
-    l = _assemble_vec(lb, sizes, lead, kw)
+    lraw = l = _assemble_vec(lb, sizes, lead, kw)
     H = _assemble_mat(Hb, sizes, lead, kw)
     barrier = torch.zeros(lead, **kw)
     g_all, Jz_all = {}, {}
@@ -428,4 +615,4 @@ def terminal_quad(model, costs, constraints, options, t, q, v, slack, dual,
         barrier = barrier + pdipm.barrier_value(s_, options.barrier)
         g_all[comp.name] = g
         Jz_all[comp.name] = Jn_
-    return val, l, 0.5 * (H + H.mT), barrier, g_all, Jz_all
+    return val, l, 0.5 * (H + H.mT), barrier, g_all, Jz_all, lraw

@@ -72,10 +72,12 @@ def contact_solve_T(LMi, LSi, Jm, b1, b2):
     return x, y
 
 
-def impulse_map(model: RobotModel, cm: ContactModel, q, v, active):
+def impulse_map(model: RobotModel, cm: ContactModel, q, v, active, fkb=None):
     """(v+, Lambda): perfectly inelastic impact on the newly-active contacts:
-    M (v+ - v) = Jm^T Lambda, Jm v+ = 0."""
-    mj = mass_and_contact_jacobian_fk(model, cm, spatial.fk(model, q))
+    M (v+ - v) = Jm^T Lambda, Jm v+ = 0. fkb: the FK bundle at q, where the
+    caller has it already."""
+    mj = mass_and_contact_jacobian_fk(
+        model, cm, spatial.fk(model, q) if fkb is None else fkb)
     LM, LS, Jm, _, _ = factors_from_mj(*mj, active)
     vcol = v[..., :, None]
     dv, lam = contact_solve(LM, LS, Jm, torch.zeros_like(vcol), -Jm @ vcol)

@@ -1,10 +1,10 @@
 """Scenario batching.
 
 Twin of ``idocp_tpu/parallel/batch.py`` (``batch_solution`` and
-``BatchedSolver.update``; no device mesh, no batched solve-to-tolerance yet).
-The scale-out axis is scenario batching: many independent MPC problems
-(initial states, disturbances) per card, one leading tensor axis. The port's
-solver is written batch-first, so this is a thin wrapper.
+``BatchedSolver``; no device mesh and no per-scenario schedules yet). The
+scale-out axis is scenario batching: many independent MPC problems (initial
+states, disturbances) per card, one leading tensor axis. The port's solver is
+written batch-first, so this is a thin wrapper.
 """
 from __future__ import annotations
 
@@ -15,13 +15,32 @@ def batch_solution(sol, batch: int):
 
 
 class BatchedSolver:
-    """Batched wrapper around an OCPSolver: ``update`` performs one Newton
-    iteration on every scenario of a batched Solution. The HorizonSchedule
-    is shared by the whole batch."""
+    """Batched wrapper around an OCPSolver. The HorizonSchedule is shared by
+    the whole batch."""
 
     def __init__(self, solver):
         self.solver = solver
 
     def update(self, sol_batched, t, q_batch, v_batch, schedule):
+        """One Newton iteration on every scenario of a batched Solution."""
         return self.solver.update_batched(sol_batched, t, q_batch, v_batch,
                                           schedule)
+
+    def kkt_error(self, sol_batched, t, q_batch, v_batch, schedule):
+        """KKT residual norm per scenario, (B,)."""
+        return self.solver.kkt_error_batched(sol_batched, t, q_batch, v_batch,
+                                             schedule)
+
+    def mean_kkt_error(self, sol_batched, t, q_batch, v_batch, schedule):
+        """Cross-scenario metric reduction."""
+        return self.kkt_error(sol_batched, t, q_batch, v_batch,
+                              schedule).mean()
+
+    def solve(self, sol_batched, t, q_batch, v_batch, schedule, tol=None,
+              max_iterations=None):
+        """Batched solve-to-tolerance with per-scenario convergence, see
+        ``OCPSolver.solve_batched``. Returns (solution, iters (B,), kkt (B,),
+        converged (B,) bool)."""
+        return self.solver.solve_batched(sol_batched, t, q_batch, v_batch,
+                                         schedule, tol=tol,
+                                         max_iterations=max_iterations)

@@ -1,13 +1,15 @@
 """Horizon-level Newton update: linearize -> condense -> Riccati -> expand
 -> step, on a batch of scenarios.
 
-Twin of ``idocp_tpu/solver/core.py`` (``make_update_fn`` without its
-line-search, KKT-error and parallel-Riccati branches). The twin is written
-for one scenario and batched by vmap; here every tensor carries the scenario
-axis B first, every per-scenario scalar of the twin (step sizes, the trust
-cap, the finiteness flag, costs, norms) is a (B,) tensor reduced over the
-non-batch axes only, and nothing inside ``update`` reads a value back to the
-host.
+Twin of ``idocp_tpu/solver/core.py`` (``make_direction_fn``,
+``make_update_fn``, ``kkt_error_from_lin``, ``make_kkt_error_fn``; serial
+Riccati only). The twin is written for one scenario and batched by vmap; here
+every tensor carries the scenario axis B first, every per-scenario scalar of
+the twin (step sizes, the trust cap, the finiteness flag, costs, norms, the
+accepted trial) is a (B,) tensor reduced over the non-batch axes only, and
+nothing inside ``update`` reads a value back to the host. The optional filter
+line search evaluates its whole (B, K) trial grid in one batched pass
+(line_search.py).
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from ..ocp.condensing import condense, dual_rhs
 from ..ocp.data import Solution, TensorStruct
 from ..ocp.state_equation import contact_solve_T
 from ..riccati import recursion
+from ..ocp.stage import chain_to_x
 from ..robot import model as model_mod
+from . import line_search as ls_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,11 +37,18 @@ class UpdateStats(TensorStruct):
     alpha_dual: torch.Tensor
     kkt_direction_norm: torch.Tensor
     violation: torch.Tensor
-    #: the Newton direction norm, a cheap convergence proxy (the KKT residual
-    #: norm of the twin's ``compute_kkt_error=True`` is not ported yet)
+    #: KKT residual norm at the PRE-step iterate, computed from the same
+    #: linearization as the step itself (no second linearize). solve()
+    #: converges on this. With ``compute_kkt_error=False`` it is the Newton
+    #: direction norm, a cheap convergence proxy.
     kkt_error: torch.Tensor
-    #: always True on the path without line search
+    #: False when the filter line search rejected every trial and fell back
+    #: to the smallest step; always True without line search
     ls_accepted: torch.Tensor
+    #: index of the chosen trial in the line-search grid (0 = the full
+    #: fraction-to-boundary step), int64; 0 where no trial was accepted and
+    #: without line search
+    ls_trial: torch.Tensor
 
 
 def _mv(A, x):
@@ -79,38 +90,64 @@ def _expand_dual_all(model, lin, dx, du, dwe, lam_new, dxi):
     return torch.cat([nu_b[..., 0], nu_m[..., 0]], dim=-1)
 
 
-def make_update_fn(model, options, linearize_all: Callable,
-                   terminal_fn: Callable, N: int):
+def make_direction_fn(model, options, linearize_all: Callable,
+                      terminal_fn: Callable):
+    """Newton-direction computation shared by the update and the LQR-policy
+    getter: linearize -> condense -> Riccati -> rollout -> expand-primal.
+
+    linearize_all(sol, t, q_meas, v_meas, sched, named_blocks) -> StageLin
+        with leading axes (B, N);
+    terminal_fn(sol, t) -> (val, l_cond, H, barrier, g_term, Jz_term, l_raw)
+        with leading axis B.
+    """
+
+    @torch.no_grad()
+    def direction(sol: Solution, t, q_meas, v_meas, sched,
+                  named_blocks=False):
+        lin = linearize_all(sol, t, q_meas, v_meas, sched,
+                            named_blocks=named_blocks)
+        term = terminal_fn(sol, t)
+        term_l, term_H = term[1], term[2]
+
+        cs = condense(lin.quad, lin.T_x, lin.T_k, lin.t0,
+                      lin.F_x, lin.F_w, lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
+        facs = (lin.fac_LM, lin.fac_LS, lin.fac_Jm)
+
+        dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
+        dx0 = torch.cat([dq0, v_meas - sol.v[:, 0]], dim=-1)
+        P, s, pols = recursion.backward_recursion(
+            term_H, term_l, cs, lin.sw_mask,
+            reg=options.riccati_regularization)
+        dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
+        dwe = _mv(cs.Wx, dx[:, :-1]) + _mv(cs.Wk, du) + cs.w0
+        return lin, term, cs, facs, P, s, dx, du, dxi, dwe, pols
+
+    return direction
+
+
+def make_update_fn(model, options, direction: Callable, N: int,
+                   evaluate_all: Callable):
     """Build the one-iteration update function on batched solutions.
 
-    linearize_all(sol, t, q_meas, v_meas, sched) -> StageLin with leading
-        axes (B, N);
-    terminal_fn(sol, t) -> (val, l_cond, H, barrier, g_term, Jz_term) with
-        leading axis B.
+    direction: the closure of ``make_direction_fn`` built with the same
+        options;
+    evaluate_all(sol, t, q_meas, v_meas, sched) -> (cost+barrier, L1
+        violation), each (L,), reading only the primal and slack fields of a
+        solution with leading axis L; the merit pair of the filter line
+        search, called only when options.use_line_search.
     """
     nv = model.nv
     tau = options.fraction_to_boundary
 
     @torch.no_grad()
     def update(sol: Solution, t, q_meas, v_meas, sched):
-        lin = linearize_all(sol, t, q_meas, v_meas, sched)
-        term_val, term_l, term_H, term_barrier, g_term, Jz_term = \
-            terminal_fn(sol, t)
-
-        cs = condense(lin.quad, lin.T_x, lin.T_k, lin.t0,
-                      lin.F_x, lin.F_w, lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
-
-        dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
-        dv0 = v_meas - sol.v[:, 0]
-        dx0 = torch.cat([dq0, dv0], dim=-1)
-
-        P, s, pols = recursion.backward_recursion(
-            term_H, term_l, cs, lin.sw_mask,
-            reg=options.riccati_regularization)
-        dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
+        lin, term, cs, _, P, s, dx, du, dxi, dwe, _ = direction(
+            sol, t, q_meas, v_meas, sched,
+            named_blocks=options.compute_kkt_error)
+        term_val, _, _, term_barrier, g_term, Jz_term, _ = term
+        B = dx.shape[0]
+        dx0 = dx[:, 0]                     # the rollout starts at (dq0, dv0)
         lam_new = _mv(P, dx) + s                           # (B, N+1, 2nv)
-
-        dwe = _mv(cs.Wx, dx[:, :-1]) + _mv(cs.Wk, du) + cs.w0
         nu_e = _expand_dual_all(model, lin, dx, du, dwe, lam_new, dxi)
 
         dz = torch.cat([dx[:, :-1], dwe, du], dim=-1)      # (B, N, nx+nw)
@@ -162,13 +199,35 @@ def make_update_fn(model, options, linearize_all: Callable,
 
         eps = torch.finfo(sol.v.dtype).eps
 
-        # current-iterate merit pair (cost, L1 violation); the inequality
-        # part counts actual infeasibility relu(g) only, not |g + s|
+        def apply_primal(ap):
+            """Trial/final primal + slack step (duals frozen): the fields q,
+            v, a, f, u, slack after a step of size ap, (B,) for one step per
+            scenario or (B, K) for a grid of K trials per scenario (the
+            fields then carry the axes (B, K) first)."""
+            if ap.dim() == 2:
+                K = ap.shape[1]
+                lift = lambda x: x[:, None].expand((B, K) + x.shape[1:])
+            else:
+                lift = lambda x: x
+            a3 = ap[..., None, None]
+            step = lambda x, d: lift(x) + a3 * lift(d)
+            return dict(
+                q=model_mod.integrate(model, lift(sol.q),
+                                      a3 * lift(dx[..., :nv])),
+                v=step(sol.v, dx[..., nv:]), a=step(sol.a, a_dir),
+                f=step(sol.f, f_dir), u=step(sol.u, u_dir),
+                slack={k: torch.clamp(step(sol.slack[k], ds_all[k]), min=eps)
+                       for k in sol.slack})
+
+        # current-iterate merit pair (cost+barrier, L1 violation); the
+        # inequality part counts actual infeasibility relu(g) only, not
+        # |g + s| (the measure of the evaluate_* functions, see
+        # stage.evaluate_contact_stage for the rationale)
         cost = _sum_b(lin.cost) + term_val
         barrier = _sum_b(lin.barrier) + term_barrier
+        cost0 = cost + barrier
         viol0 = (_sum_b(lin.xres.abs()) + _sum_b(lin.e.abs())
-                 + _sum_b((lin.sw_mask * lin.h).abs())
-                 + _sum_b(dq0.abs()) + _sum_b(dv0.abs()))
+                 + _sum_b((lin.sw_mask * lin.h).abs()) + _sum_b(dx0.abs()))
         for name in lin.g:
             viol0 = viol0 + _sum_b(torch.clamp(lin.g[name], min=0.0))
         for name in g_term:
@@ -176,17 +235,45 @@ def make_update_fn(model, options, linearize_all: Callable,
 
         # optional trust-radius cap (safeguard of the path without line search)
         if math.isfinite(options.max_step_norm):
-            dmax = dx.abs().reshape(dx.shape[0], -1).amax(dim=1)
+            dmax = dx.abs().reshape(B, -1).amax(dim=1)
             cap = options.max_step_norm / torch.clamp(
                 dmax, min=options.max_step_norm)
             alpha_p = torch.minimum(alpha_p, cap)
 
-        ap, ad = alpha_p, alpha_d
+        ls_accepted = torch.ones_like(finite_dir)
+        # filter augmentation gate: only remember the pre-step iterate when
+        # the step was NOT a plain cost-decrease step (conditional
+        # augmentation; see line_search.filter_insert)
+        ls_insert = torch.zeros_like(finite_dir)
+        ls_trial = torch.zeros_like(finite_dir, dtype=torch.long)
+        if options.use_line_search:
+            def eval_grid(alphas):
+                """(cost+barrier, violation), each (B, K), of the whole trial
+                grid as one flat batch of B K solutions."""
+                K = alphas.shape[1]
+                flat = lambda x: x.reshape((B * K,) + x.shape[2:])
+                trial = {k: ({n: flat(y) for n, y in x.items()}
+                             if isinstance(x, dict) else flat(x))
+                         for k, x in apply_primal(alphas).items()}
+                per_trial = lambda x: flat(
+                    x[:, None].expand((B, K) + x.shape[1:]))
+                costs, viols = evaluate_all(
+                    dataclasses.replace(sol, **trial), t, per_trial(q_meas),
+                    per_trial(v_meas), sched)
+                return costs.reshape(B, K), viols.reshape(B, K)
+
+            ap, ls_accepted, ls_by_cost, ls_trial = ls_mod.search(
+                eval_grid, alpha_p, options.line_search_alphas, cost0, viol0,
+                margin=options.line_search_margin,
+                filter_cost=sol.filter_cost, filter_viol=sol.filter_viol)
+            ls_insert = torch.logical_not(ls_by_cost)
+        else:
+            ap = alpha_p
+        ad = alpha_d
         ap1, ad1 = ap[:, None, None], ad[:, None, None]
 
         # --- primal/dual update
-        slack_new = {k: torch.clamp(sol.slack[k] + ap1 * ds_all[k], min=eps)
-                     for k in sol.slack}
+        stepped = apply_primal(ap)
         # Dual safeguard in the manner of Ipopt's kappa_Sigma: keep each dual
         # within [mu/(kappa s), kappa mu/s] so the complementarity product
         # s*nu stays within kappa of the barrier target. Without it, f32
@@ -194,31 +281,36 @@ def make_update_fn(model, options, linearize_all: Callable,
         # iterations. kappa follows the dtype: wide enough never to bind in
         # healthy f64 solves.
         kappa = 0.01 / eps
+        slack_new = stepped["slack"]
         dual_new = {
             k: torch.minimum(
                 torch.maximum(sol.dual[k] + ad1 * dnu_all[k],
                               options.barrier / (kappa * slack_new[k])),
                 kappa * options.barrier / slack_new[k])
             for k in sol.dual}
+        fc_new, fv_new, fp_new = ls_mod.filter_insert(
+            sol.filter_cost, sol.filter_viol, sol.filter_ptr, cost0, viol0,
+            do=ls_insert)
         new_sol = dataclasses.replace(
-            sol,
-            q=model_mod.integrate(model, sol.q, ap1 * dx[..., :nv]),
-            v=sol.v + ap1 * dx[..., nv:],
-            a=sol.a + ap1 * a_dir,
-            f=sol.f + ap1 * f_dir,
-            u=sol.u + ap1 * u_dir,
+            sol, **stepped,
             lmd=sol.lmd + ap1 * (lam_new[..., :nv] - sol.lmd),
             gmm=sol.gmm + ap1 * (lam_new[..., nv:] - sol.gmm),
             beta=sol.beta + ap1 * (nu_e[..., :nv] - sol.beta),
             mu=sol.mu + ap1 * (nu_e[..., nv:] - sol.mu),
             xi=sol.xi + ap1 * (dxi - sol.xi),
-            slack=slack_new, dual=dual_new)
+            dual=dual_new, filter_cost=fc_new, filter_viol=fv_new,
+            filter_ptr=fp_new)
 
         # a frozen (non-finite-direction) scenario must NOT look converged
         # to the direction-norm convergence proxy
         dirnorm = torch.where(
             finite_dir, torch.sqrt(_sum_b(dx * dx) + _sum_b(du * du)),
             torch.full_like(cost, float("inf")))
+        if options.compute_kkt_error:
+            kkt_err = kkt_error_from_lin(model, options, N, lin, term, sol,
+                                         q_meas, v_meas)
+        else:  # hot path: direction norm as a cheap convergence proxy
+            kkt_err = dirnorm
         stats = UpdateStats(
             cost=cost, barrier=barrier,
             # a frozen step is also a rejected step for observability
@@ -226,8 +318,70 @@ def make_update_fn(model, options, linearize_all: Callable,
             alpha_dual=ad,
             kkt_direction_norm=dirnorm,
             violation=viol0,
-            kkt_error=dirnorm,
-            ls_accepted=torch.ones_like(finite_dir))
+            kkt_error=kkt_err,
+            ls_accepted=ls_accepted,
+            ls_trial=ls_trial)
         return new_sol, stats
 
     return update
+
+
+def kkt_error_from_lin(model, options, N, lin, term, sol: Solution,
+                       q_meas, v_meas):
+    """KKT residual norm (B,) at the iterate the linearization was taken at.
+    Shared by the standalone KKT function and the update step (which reuses
+    its own linearization: one linearize per Newton iteration). ``lin`` must
+    carry the named-space blocks (``named_blocks=True``)."""
+    nv = model.nv
+    nx = 2 * nv
+    _, _, _, _, g_term, Jz_term, term_lraw = term
+    lam = torch.cat([sol.lmd, sol.gmm], dim=-1)            # (B, N+1, 2nv)
+    numul = torch.cat([sol.beta, sol.mu], dim=-1)
+
+    # stage stationarity: the named-space gradient chained to (x | w); the
+    # chain over x is [[I, 0], [Gq, Gv], [0, 0]], the one over w selects the
+    # named (a, f, u) entries
+    grad_named = (lin.lnamed + _mv(lin.E_named.mT, numul)
+                  + _mv(lin.C_named.mT, sol.xi)
+                  + _mv(lin.F_named.mT, lam[:, 1:]))
+    st = torch.cat([
+        chain_to_x(lin.Gq, lin.Gv, grad_named) + lin.lx_extra - lam[:, :N],
+        grad_named[..., nx:]], dim=-1)
+    # inequality-constraint gradient terms (Jacobians already over (x | w))
+    for name in lin.Jz:
+        st = st + _mv(lin.Jz[name].mT, sol.dual[name][:, :N])
+    err = _sum_b(st * st)
+    # terminal stationarity
+    st_term = term_lraw - lam[:, N]
+    for name in g_term:
+        st_term = st_term + _mv(Jz_term[name].mT, sol.dual[name][:, N])
+    err = err + _sum_b(st_term * st_term)
+    # primal residuals
+    dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
+    err = err + _sum_b(dq0 * dq0) + _sum_b((v_meas - sol.v[:, 0]) ** 2)
+    err = err + _sum_b(lin.xres * lin.xres) + _sum_b(lin.e * lin.e)
+    err = err + _sum_b((lin.sw_mask * lin.h) ** 2)
+    # interior-point residuals
+    for name in lin.g:
+        r_p, r_c = pdipm.residuals(
+            lin.g[name], sol.slack[name][:, :N], sol.dual[name][:, :N],
+            options.barrier)
+        err = err + _sum_b(r_p * r_p) + _sum_b(r_c * r_c)
+    for name in g_term:
+        r_p, r_c = pdipm.residuals(
+            g_term[name], sol.slack[name][:, N], sol.dual[name][:, N],
+            options.barrier)
+        err = err + _sum_b(r_p * r_p) + _sum_b(r_c * r_c)
+    return torch.sqrt(err)
+
+
+def make_kkt_error_fn(model, options, linearize_all, terminal_fn, N):
+    """Standalone KKT-error function (linearizes at the current iterate)."""
+
+    @torch.no_grad()
+    def kkt_error(sol: Solution, t, q_meas, v_meas, sched):
+        lin = linearize_all(sol, t, q_meas, v_meas, sched, named_blocks=True)
+        return kkt_error_from_lin(model, options, N, lin, terminal_fn(sol, t),
+                                  sol, q_meas, v_meas)
+
+    return kkt_error

@@ -1,19 +1,18 @@
 """Whole-body contact OCP solver.
 
-Twin of ``idocp_tpu/solver/ocp_solver.py`` (``OCPSolver``: the impulse-slot
-gather, ``linearize_all``, ``terminal_fn``, ``set_solution``,
-``init_constraints``, ``check_schedule``, ``update_solution``). Handles
+Twin of ``idocp_tpu/solver/ocp_solver.py`` (``OCPSolver``). Handles
 floating-base robots with point contacts, impulse events (mask-gated impulse
 maps), Baumgarte-stabilized contact constraints and switching (touchdown)
 constraints, all static-shape via HorizonSchedule masks. One Newton iteration
-per ``update_solution`` call, under ``torch.no_grad()``.
+per ``update_solution`` call, a Newton loop to tolerance per ``solve`` call,
+under ``torch.no_grad()``.
 
-The update works on a batch of scenarios sharing one schedule: stages are
-flattened to (B N, ...) for the linearization and kept as (B, N, ...) inside
-the Riccati loop. ``OCPSolver.update_solution`` is the same code with B = 1;
-``parallel.batch.BatchedSolver.update`` is a thin wrapper around it.
-Not ported yet: impulse costs / impulse constraints, ``solve``, ``kkt_error``,
-the line-search evaluation and the LQR-policy getter.
+Every function works on a batch of scenarios sharing one schedule: stages are
+flattened to (B N, ...) for the linearization and the value-only evaluation
+and kept as (B, N, ...) inside the Riccati loop. The single-scenario entry
+points (``update_solution``, ``kkt_error``, ``solve``, ``get_lqr_policy``)
+are the same code with B = 1; ``parallel.batch.BatchedSolver`` is a thin
+wrapper around the batched ones.
 """
 from __future__ import annotations
 
@@ -27,11 +26,13 @@ from ..cost.base import EvalContext
 from ..hybrid.schedule import HorizonSchedule
 from ..ocp import stage as stage_mod
 from ..ocp.data import Solution, zero_solution
-from ..ocp.state_equation import mask3_of, mass_and_contact_jacobian_fk
+from ..ocp.state_equation import (impulse_map, mask3_of,
+                                   mass_and_contact_jacobian_fk)
 from ..robot import spatial
 from ..robot.contact import ContactModel
+from ..robot import model as model_mod
 from ..robot.model import resolve_device
-from .core import make_update_fn
+from .core import make_direction_fn, make_kkt_error_fn, make_update_fn
 from .options import SolverOptions
 
 
@@ -40,10 +41,32 @@ def _flat(x, n=2):
     return x.reshape((-1,) + x.shape[n:])
 
 
+class HostFlag:
+    """One boolean of a device tensor made readable on the host without
+    draining the launch queue: the copy into pinned memory is queued behind
+    the work that produces the flag, and ``read`` waits for that copy only,
+    so whatever was queued after it keeps the device busy. On a CPU tensor it
+    is a plain read."""
+
+    def __init__(self, flag: torch.Tensor):
+        if flag.is_cuda:
+            self._host = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self._host.copy_(flag, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = flag, None
+
+    def read(self) -> bool:
+        if self._event is not None:
+            self._event.synchronize()
+        return bool(self._host)
+
+
 class OCPSolver:
     def __init__(self, model, contact_model: ContactModel, cost, constraints,
                  T, N, options: SolverOptions = SolverOptions(),
-                 dtype=torch.float64, device="cuda",
+                 dtype=torch.float64, device="cuda", impulse_cost=None,
                  max_impulse_stages: int = 4):
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -52,14 +75,17 @@ class OCPSolver:
                 f"model is on {model.device} in {model.dtype}, solver asked "
                 f"for {self.device} in {dtype}: build the model with the "
                 "solver's device and dtype")
-        for c in constraints:
-            if getattr(c, "impulse", False):
-                raise NotImplementedError(
-                    "impulse constraints are not ported to idocp_tpu_torch yet")
         self.model = model
         self.cm = contact_model
         self.cost = tuple(cost)
-        self.constraints = tuple(constraints)
+        # impulse-Lambda components (ImpulseFrictionCone etc.) chain through
+        # the impulse-map Jacobians inside the stage assembly, not the named
+        # space: split them out of the regular component list here.
+        self.constraints = tuple(
+            c for c in constraints if not getattr(c, "impulse", False))
+        self.impulse_constraints = tuple(
+            c for c in constraints if getattr(c, "impulse", False))
+        self.impulse_cost = impulse_cost
         self.T, self.N = float(T), int(N)
         self.options = options
         self._ctx = EvalContext(model=model, contact_model=contact_model)
@@ -68,26 +94,56 @@ class OCPSolver:
         #: ONLY on these gathered slots instead of on every stage: a trot
         #: horizon has <=2 touchdowns in 20 stages.
         self.max_impulse_stages = max(1, min(int(max_impulse_stages), self.N))
-        self._update = make_update_fn(model, options, self.linearize_all,
-                                      self.terminal_fn, self.N)
+        #: per-options function sets, keyed by the (hashable) frozen
+        #: SolverOptions: the barrier-continuation path swaps the barrier by
+        #: building (and caching) a sibling set of closures.
+        self._fn_cache = {}
+        fns = self._fns_for(options)
+        self._update = fns["update"]
+        self._kkt = fns["kkt"]
+        self._direction = fns["direction"]
+        #: host reads of the last ``solve`` / ``solve_batched`` call (one
+        #: convergence flag each)
+        self.host_reads = 0
         self.solution: Solution = None
 
+    def _fns_for(self, options: SolverOptions):
+        if options not in self._fn_cache:
+            lin = lambda *a, **kw: self.linearize_all(*a, options=options, **kw)
+            term = lambda sol, t: self.terminal_fn(sol, t, options=options)
+            ev = lambda *a: self.evaluate_all(*a, options=options)
+            direction = make_direction_fn(self.model, options, lin, term)
+            self._fn_cache[options] = {
+                "update": make_update_fn(self.model, options, direction,
+                                         self.N, ev),
+                "kkt": make_kkt_error_fn(self.model, options, lin, term,
+                                         self.N),
+                "direction": direction,
+            }
+        return self._fn_cache[options]
+
     # ------------------------------------------------------------------
-    def _imp_quants_all(self, sol, sched: HorizonSchedule):
-        """Slot-gathered impulse quantities scattered to (B, N, ...). The
-        slots are the (up to k) impulse stages of the shared schedule; extra
-        slots land on arbitrary non-impulse stages with mask 0 (their gated
-        quantities are identity)."""
-        model, cm, N_, k = self.model, self.cm, self.N, self.max_impulse_stages
-        nv, nf = model.nv, cm.max_dimf
-        B = sol.q.shape[0]
-        kw = dict(dtype=sol.v.dtype, device=sol.v.device)
+    def _impulse_slots(self, sol, sched: HorizonSchedule):
+        """The (up to k) impulse stages of the shared schedule with their
+        states flattened to (L k, ...); extra slots land on arbitrary
+        non-impulse stages with mask 0 (their gated quantities are
+        identity)."""
+        k, L = self.max_impulse_stages, sol.q.shape[0]
         slots = torch.argsort(torch.logical_not(sched.imp_mask),
                               stable=True)[:k]
         q_s = _flat(torch.index_select(sol.q, 1, slots))
         v_s = _flat(torch.index_select(sol.v, 1, slots))
-        mask_s = sched.imp_mask[slots].expand(B, k).reshape(-1)
-        ic_s = _flat(sched.imp_contact[slots].expand(B, k, cm.nc))
+        mask_s = sched.imp_mask[slots].expand(L, k).reshape(-1)
+        ic_s = _flat(sched.imp_contact[slots].expand(L, k, self.cm.nc))
+        return slots, q_s, v_s, mask_s, ic_s
+
+    def _imp_quants_all(self, sol, sched: HorizonSchedule):
+        """Slot-gathered impulse quantities scattered to (B, N, ...)."""
+        model, cm, N_, k = self.model, self.cm, self.N, self.max_impulse_stages
+        nv, nf = model.nv, cm.max_dimf
+        B = sol.q.shape[0]
+        kw = dict(dtype=sol.v.dtype, device=sol.v.device)
+        slots, q_s, v_s, mask_s, ic_s = self._impulse_slots(sol, sched)
         fkb = spatial.fk(model, q_s)
         mj = mass_and_contact_jacobian_fk(model, cm, fkb)
         outs = stage_mod._impulse_quantities(
@@ -102,34 +158,81 @@ class OCPSolver:
             base.index_copy_(1, slots, out.reshape((B, k) + out.shape[1:]))
             for base, out in zip(bases, outs))
 
-    def linearize_all(self, sol: Solution, t, q_meas, v_meas,
-                      sched: HorizonSchedule) -> stage_mod.StageLin:
-        """Stage linearizations of a batched solution, leading axes (B, N)."""
-        N_ = self.N
-        B = sol.q.shape[0]
-        iq = self._imp_quants_all(sol, sched)
-        per_stage = lambda x: _flat(x.expand((B,) + x.shape))
-        lin = stage_mod.linearize_contact_stage(
-            self.model, self.cm, self.cost, self.constraints, self.options,
-            per_stage(t + sched.t_offset), per_stage(sched.dt),
-            _flat(sol.q[:, :N_]), _flat(sol.v[:, :N_]), _flat(sol.a),
-            _flat(sol.f), _flat(sol.u), _flat(sol.q[:, 1:]),
-            _flat(sol.v[:, 1:]),
-            {k: _flat(v[:, :N_]) for k, v in sol.slack.items()},
-            {k: _flat(v[:, :N_]) for k, v in sol.dual.items()},
+    def _imp_values_all(self, sol, sched: HorizonSchedule):
+        """Value-only slot gather: (v_eff (L, N, nv), lam (L, N, nf))."""
+        N_, k, L = self.N, self.max_impulse_stages, sol.q.shape[0]
+        slots, q_s, v_s, mask_s, ic_s = self._impulse_slots(sol, sched)
+        vpost, lam_s = impulse_map(self.model, self.cm, q_s, v_s, ic_s)
+        mf = mask_s.to(v_s.dtype)[:, None]
+        v_eff = sol.v[:, :N_].clone().index_copy_(
+            1, slots, (v_s + mf * (vpost - v_s)).reshape(L, k, -1))
+        lam = torch.zeros((L, N_, self.cm.max_dimf), dtype=v_s.dtype,
+                          device=v_s.device).index_copy_(
+            1, slots, (mf * lam_s).reshape(L, k, -1))
+        return v_eff, lam
+
+    def _stage_args(self, sol, t, sched: HorizonSchedule, with_dual):
+        """The per-stage arguments shared by the linearization and the
+        value-only evaluation, flattened to (L N, ...)."""
+        N_, L = self.N, sol.q.shape[0]
+        per_stage = lambda x: _flat(x.expand((L,) + x.shape))
+        head = (per_stage(t + sched.t_offset), per_stage(sched.dt),
+                _flat(sol.q[:, :N_]), _flat(sol.v[:, :N_]), _flat(sol.a),
+                _flat(sol.f), _flat(sol.u), _flat(sol.q[:, 1:]),
+                _flat(sol.v[:, 1:]),
+                {k: _flat(v[:, :N_]) for k, v in sol.slack.items()})
+        if with_dual:
+            head += ({k: _flat(v[:, :N_]) for k, v in sol.dual.items()},)
+        return head + (
             per_stage(sched.contact_active), per_stage(sched.contact_pos),
             per_stage(sched.imp_mask), per_stage(sched.imp_contact),
-            per_stage(sched.sw_contact), per_stage(sched.sw_pos), self._ctx,
-            imp_quants=tuple(_flat(x) for x in iq))
-        return lin.map(lambda x: x.reshape((B, N_) + x.shape[1:]))
+            per_stage(sched.sw_contact), per_stage(sched.sw_pos), self._ctx)
 
-    def terminal_fn(self, sol: Solution, t):
+    def linearize_all(self, sol: Solution, t, q_meas, v_meas,
+                      sched: HorizonSchedule, named_blocks=False,
+                      options=None) -> stage_mod.StageLin:
+        """Stage linearizations of a batched solution, leading axes (B, N)."""
+        B = sol.q.shape[0]
+        iq = self._imp_quants_all(sol, sched)
+        lin = stage_mod.linearize_contact_stage(
+            self.model, self.cm, self.cost, self.constraints,
+            options or self.options,
+            *self._stage_args(sol, t, sched, with_dual=True),
+            impulse_cost=self.impulse_cost,
+            impulse_constraints=self.impulse_constraints,
+            imp_quants=tuple(_flat(x) for x in iq), named_blocks=named_blocks)
+        return lin.map(lambda x: x.reshape((B, self.N) + x.shape[1:]))
+
+    def terminal_fn(self, sol: Solution, t, options=None):
         N_ = self.N
         return stage_mod.terminal_quad(
-            self.model, self.cost, self.constraints, self.options,
+            self.model, self.cost, self.constraints, options or self.options,
             t + self.T, sol.q[:, N_], sol.v[:, N_],
             {k: v[:, N_] for k, v in sol.slack.items()},
             {k: v[:, N_] for k, v in sol.dual.items()}, self._ctx)
+
+    def evaluate_all(self, sol: Solution, t, q_meas, v_meas,
+                     sched: HorizonSchedule, options=None):
+        """(cost + barrier, L1 violation), each (L,), of L solutions: the
+        merit pair of the line search. Reads only q, v, a, f, u and slack, so
+        a trial solution need carry nothing else at its leading axis."""
+        N_, L = self.N, sol.q.shape[0]
+        options = options or self.options
+        iv = self._imp_values_all(sol, sched)
+        c_st, v_st = stage_mod.evaluate_contact_stage(
+            self.model, self.cm, self.cost, self.constraints, options,
+            *self._stage_args(sol, t, sched, with_dual=False),
+            impulse_cost=self.impulse_cost,
+            impulse_constraints=self.impulse_constraints,
+            imp_values=tuple(_flat(x) for x in iv))
+        c_t, v_t = stage_mod.evaluate_terminal(
+            self.model, self.cost, self.constraints, options,
+            t + self.T, sol.q[:, N_], sol.v[:, N_],
+            {k: v[:, N_] for k, v in sol.slack.items()}, self._ctx)
+        dq0 = model_mod.difference(self.model, sol.q[:, 0], q_meas)
+        viol = (v_st.reshape(L, N_).sum(dim=1) + v_t + dq0.abs().sum(dim=1)
+                + (v_meas - sol.v[:, 0]).abs().sum(dim=1))
+        return c_st.reshape(L, N_).sum(dim=1) + c_t, viol
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -147,7 +250,9 @@ class OCPSolver:
         as_t = lambda x: torch.as_tensor(x, **kw)
         sol = zero_solution(
             m.nq, m.nv, m.nu, cm.max_dimf, self.N, as_t(q0),
-            None if v0 is None else as_t(v0), dtype=self.dtype)
+            None if v0 is None else as_t(v0), dtype=self.dtype,
+            filter_size=(self.options.line_search_filter_size
+                         if self.options.use_line_search else 0))
         total = float(torch.sum(m.mass)) * 9.81
         if schedule is not None and f0 is None:
             active = schedule.contact_active.cpu().numpy()
@@ -194,6 +299,19 @@ class OCPSolver:
             slack[comp.name], dual[comp.name] = pdipm.init_slack_dual(
                 torch.cat([g_stages, g_term[None]], dim=0),
                 self.options.barrier, self.options.min_slack)
+        if self.impulse_constraints:
+            _, lam_raw = impulse_map(self.model, self.cm, sol.q[:N_],
+                                     sol.v[:N_], schedule.imp_contact)
+            m_st = schedule.imp_mask.to(self.dtype)[:, None]
+            gates = m_st * schedule.imp_contact.to(self.dtype)
+            for comp in self.impulse_constraints:
+                g_stages, _ = comp.evaluate_lam(m_st * lam_raw, gates)
+                # the rows exist on the terminal stage too, as the feasible
+                # constant
+                g_term = -torch.ones_like(g_stages[:1])
+                slack[comp.name], dual[comp.name] = pdipm.init_slack_dual(
+                    torch.cat([g_stages, g_term], dim=0),
+                    self.options.barrier, self.options.min_slack)
         self.solution = dataclasses.replace(sol, slack=slack, dual=dual)
 
     def check_schedule(self, schedule: HorizonSchedule):
@@ -213,6 +331,13 @@ class OCPSolver:
                 "max_impulse_stages (OCPSolver ctor) to cover the gait's "
                 "touchdown count")
 
+    # ------------------------------------------------------------------
+    def _batched(self, q, v):
+        """The solver's own solution and a measured state with B = 1."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (self.solution.map(lambda x: x[None]),
+                torch.as_tensor(q, **kw)[None], torch.as_tensor(v, **kw)[None])
+
     def update_batched(self, sol_b: Solution, t, q_b, v_b,
                        schedule: HorizonSchedule):
         """One Newton iteration on a batch of scenarios (leading axis B)
@@ -222,10 +347,164 @@ class OCPSolver:
 
     def update_solution(self, t, q, v, schedule: HorizonSchedule):
         """One Newton iteration on the solver's own single-scenario solution."""
-        kw = dict(dtype=self.dtype, device=self.device)
-        sol_b, stats = self.update_batched(
-            self.solution.map(lambda x: x[None]), t,
-            torch.as_tensor(q, **kw)[None], torch.as_tensor(v, **kw)[None],
-            schedule)
+        sol_b, q_b, v_b = self._batched(q, v)
+        sol_b, stats = self.update_batched(sol_b, t, q_b, v_b, schedule)
         self.solution = sol_b.map(lambda x: x[0])
         return stats.map(lambda x: x[0])
+
+    def kkt_error_batched(self, sol_b: Solution, t, q_b, v_b,
+                          schedule: HorizonSchedule):
+        """KKT residual norm (B,) of a batched solution (one linearization)."""
+        self.check_schedule(schedule)
+        return self._kkt(sol_b, t, q_b, v_b, schedule)
+
+    def kkt_error(self, t, q, v, schedule: HorizonSchedule) -> float:
+        sol_b, q_b, v_b = self._batched(q, v)
+        return float(self.kkt_error_batched(sol_b, t, q_b, v_b, schedule)[0])
+
+    def solve(self, t, q, v, schedule, max_iterations=None, tol=None,
+              barrier_schedule=None):
+        """Newton loop to tolerance. One linearization per iteration:
+        convergence is checked on stats.kkt_error (computed inside the update
+        from its own linearization, the pre-step residual), so the loop does
+        one extra cheap iteration instead of a second full linearize per step.
+
+        barrier_schedule (default options.barrier_schedule): decreasing mu
+        values; each runs a Newton stage to the loose tolerance
+        max(tol, 10 mu) with warm-started slack/dual state before the final
+        stage at options.barrier (classic interior-point continuation).
+        Returns (last_stats, history list), the stats as 0-d tensors.
+
+        The host reads one flag per iteration and reads it one iteration
+        late: iteration k+1 is queued before the flag of iteration k is
+        waited for, and dropped unseen if k met the tolerance. The launch
+        queue stays full; the result is that of a loop that stops at once."""
+        self.check_schedule(schedule)
+        it_cap = max_iterations or self.options.max_iterations
+        tol = tol or self.options.kkt_tol
+        sol_b, q_b, v_b = self._batched(q, v)
+        mus = barrier_schedule if barrier_schedule is not None \
+            else self.options.barrier_schedule
+        history = []
+        self.host_reads = 0
+
+        def newton_stage(sol, update, stage_tol):
+            met = None                 # flag of the iteration before this one
+            for _ in range(it_cap):
+                nxt, stats = update(sol, t, q_b, v_b, schedule)
+                flag = HostFlag(stats.kkt_error[0] < stage_tol)
+                if met is not None:
+                    self.host_reads += 1
+                    if met.read():
+                        break          # this iteration was one too many
+                history.append(stats.map(lambda x: x[0]))
+                sol, met = nxt, flag
+            return sol
+
+        for mu in mus:
+            fns = self._fns_for(
+                dataclasses.replace(self.options, barrier=float(mu)))
+            sol_b = newton_stage(_reset_filter(sol_b), fns["update"],
+                                 max(tol, 10.0 * float(mu)))
+        if mus:
+            sol_b = _reset_filter(sol_b)
+        sol_b = newton_stage(sol_b, self._update, tol)
+        self.solution = sol_b.map(lambda x: x[0])
+        return (history[-1] if history else None), history
+
+    @torch.no_grad()
+    def solve_batched(self, sol_b: Solution, t, q_b, v_b,
+                      schedule: HorizonSchedule, tol=None,
+                      max_iterations=None):
+        """Batched solve-to-tolerance: one masked Newton loop with
+        PER-SCENARIO convergence. Converged scenarios are frozen (their
+        iterate stops changing) while the rest keep stepping; the loop ends
+        when every scenario converged or the cap is hit.
+
+        Requires options.compute_kkt_error=True (otherwise stats.kkt_error
+        is the direction-norm proxy and ``tol`` means that instead). Returns
+        (solution, iters (B,) int32, kkt (B,), converged (B,) bool).
+
+        The host reads one flag per iteration (all scenarios done) one
+        iteration late: an iteration run after every scenario converged
+        changes nothing, because the merge keeps every frozen iterate."""
+        self.check_schedule(schedule)
+        tol = tol or self.options.kkt_tol
+        cap = max_iterations or self.options.max_iterations
+        B = sol_b.q.shape[0]
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        iters = torch.zeros(B, dtype=torch.int32, device=self.device)
+        kkt = torch.full((B,), float("inf"), dtype=self.dtype,
+                         device=self.device)
+        all_done = None
+        self.host_reads = 0
+        for _ in range(cap):
+            new_sol, stats = self._update(sol_b, t, q_b, v_b, schedule)
+            frozen = done
+            sol_b = _merge(frozen, sol_b, new_sol)
+            iters = iters + torch.logical_not(frozen).to(torch.int32)
+            # stats.kkt_error is the PRE-step residual of this iteration's
+            # own linearization, as in the single-scenario solve() loop
+            kkt = torch.where(frozen, kkt, stats.kkt_error)
+            done = frozen | (kkt <= tol)
+            flag = HostFlag(done.all())
+            if all_done is not None:
+                self.host_reads += 1
+                if all_done.read():
+                    break
+            all_done = flag
+        return sol_b, iters, kkt, done
+
+    def get_solution(self, name: str):
+        return getattr(self.solution, name)
+
+    def set_solution_component(self, name: str, value):
+        """Overwrite one named solution component across the horizon.
+        ``value`` may be a single stage row (broadcast over stages) or a full
+        horizon-stacked array."""
+        if name not in ("q", "v", "a", "f", "u"):
+            raise KeyError(f"unknown solution component {name!r}")
+        cur = getattr(self.solution, name)
+        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        if value.dim() == cur.dim() - 1:
+            value = value[None].expand(cur.shape)
+        if value.shape != cur.shape:
+            raise ValueError(
+                f"{name}: expected shape {tuple(cur.shape)}, "
+                f"got {tuple(value.shape)}")
+        self.solution = dataclasses.replace(self.solution,
+                                            **{name: value.clone()})
+
+    def get_lqr_policy(self, t, q, v, schedule: HorizonSchedule):
+        """Per-stage LQR feedback policies du = K dx + k (and switching
+        multipliers xi = Kxi dx + kxi) from a Riccati factorization at the
+        current iterate, used to interpolate controls between MPC updates.
+        Returns an LQRPolicy stacked over N."""
+        self.check_schedule(schedule)
+        sol_b, q_b, v_b = self._batched(q, v)
+        return self._direction(sol_b, t, q_b, v_b, schedule)[-1].map(
+            lambda x: x[0])
+
+
+def _reset_filter(sol: Solution) -> Solution:
+    """The Fletcher-Leyffer filter memory is tied to the merit function; a mu
+    switch changes the barrier term, so remembered (cost, violation) pairs
+    from the previous mu would wrongly dominate trials: clear them at every
+    stage transition."""
+    if not sol.filter_cost.shape[-1]:
+        return sol
+    return dataclasses.replace(
+        sol, filter_cost=torch.full_like(sol.filter_cost, float("inf")),
+        filter_viol=torch.full_like(sol.filter_viol, float("inf")),
+        filter_ptr=torch.zeros_like(sol.filter_ptr))
+
+
+def _merge(frozen, old: Solution, new: Solution) -> Solution:
+    """Field by field: the old iterate where ``frozen`` (B,), else the new."""
+    pick = lambda o, n: torch.where(
+        frozen.reshape((-1,) + (1,) * (n.dim() - 1)), o, n)
+    both = lambda o, n: ({k: pick(o[k], n[k]) for k in n}
+                         if isinstance(n, dict) else pick(o, n))
+    return dataclasses.replace(new, **{
+        f.name: both(getattr(old, f.name), getattr(new, f.name))
+        for f in dataclasses.fields(new)})

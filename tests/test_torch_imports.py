@@ -90,6 +90,7 @@ def test_every_module_imports_without_jax(probe):
         "constraints.components", "hybrid.schedule", "ocp.data",
         "ocp.state_equation", "ocp.stage", "ocp.condensing",
         "riccati.recursion", "solver.options", "solver.core",
+        "solver.line_search",
         "solver.ocp_solver", "solver.mpc", "parallel.batch")}
     assert expected <= set(probe["modules"])
 

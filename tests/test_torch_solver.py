@@ -36,6 +36,8 @@ N, T, T0, B = 4, 0.5, 0.05, 2
 Q_W = [0.0] * 3 + [10.0] * 3 + [1.0] * 12
 STATS = ("cost", "barrier", "alpha_primal", "alpha_dual",
          "kkt_direction_norm", "violation", "kkt_error", "ls_accepted")
+# the port's UpdateStats also says which trial of the grid was chosen
+PORT_ONLY = {"ls_trial"}
 
 
 def _fields(sol):
@@ -52,7 +54,7 @@ def _fields(sol):
 def _assert_same(jax_obj, torch_obj, names=None):
     ja = _fields(jax_obj)
     ta = _fields(torch_obj.map(lambda x: x.numpy()))
-    assert set(ja) == set(ta)
+    assert set(ta) - PORT_ONLY == set(ja)
     for k in names or ja:
         np.testing.assert_allclose(ta[k], ja[k], rtol=RTOL, atol=ATOL,
                                    err_msg=k)
@@ -108,7 +110,9 @@ def problem(jax_backend):
             q_ref=tq0)],
         [it.JointTorquesLowerLimit(tm), it.JointTorquesUpperLimit(tm),
          it.FrictionCone(tm, nc=4, mu=0.7)],
-        T=T, N=N, options=it.SolverOptions(barrier=1e-3, max_step_norm=1.0),
+        T=T, N=N, options=it.SolverOptions(
+            barrier=1e-3, max_step_norm=1.0, use_line_search=False,
+            compute_kkt_error=False),
         dtype=torch.float64, device="cpu")
     t_feet = t_kin.frame_positions(tm, tq0, foot_ids).numpy()
     t_sched = it.schedule_at(t_solver, it.TrotGait(t_start=0.1), t_feet, T0)

@@ -1,8 +1,10 @@
 """Port parity, stage layer: cost, constraints, interior-point algebra, the
 contact-block factorization and solves, the closed-form state-equation
 blocks, the impulse quantities, the whole stage linearization (one stance
-stage with switching rows and one impulse stage), the terminal stage,
-condensing and the schedule constructors of ``idocp_tpu_torch`` against their JAX
+stage with switching rows and one impulse stage) with the named-space blocks
+of the KKT residual, the impulse-cost and impulse-constraint branches, the
+value-only evaluations of the line search, the terminal stage, condensing and
+the schedule constructors of ``idocp_tpu_torch`` against their JAX
 twins. Same numpy-seeded inputs, f64 on the CPU; the port takes both stages
 as one batch, the JAX functions one stage at a time."""
 import dataclasses
@@ -17,6 +19,7 @@ from idocp_tpu.constraints import components as j_cons
 from idocp_tpu.constraints import pdipm as j_pdipm
 from idocp_tpu.cost.base import EvalContext as JContext
 from idocp_tpu.cost.components import ConfigurationSpaceCost as JCost
+from idocp_tpu.cost.components import ImpulseCost as JImpulseCost
 from idocp_tpu.hybrid import schedule as j_schedule
 from idocp_tpu.models import anymal as j_anymal
 from idocp_tpu.ocp import condensing as j_condensing
@@ -71,9 +74,15 @@ def setup():
         u_weight=T([1e-2] * 12), qf_weight=T(Q_W), vf_weight=T([1.0] * 18),
         q_ref=T(jq0))]
     jcons = [j_cons.JointTorquesLowerLimit(jm), j_cons.JointTorquesUpperLimit(jm),
-             j_cons.FrictionCone(jm, nc=4, mu=0.7)]
+             j_cons.FrictionCone(jm, nc=4, mu=0.7),
+             j_cons.ContactNormalForce(jm, nc=4, fz_min=1.0)]
     tcons = [it.JointTorquesLowerLimit(tm), it.JointTorquesUpperLimit(tm),
-             it.FrictionCone(tm, nc=4, mu=0.7)]
+             it.FrictionCone(tm, nc=4, mu=0.7),
+             it.ContactNormalForce(tm, nc=4, fz_min=1.0)]
+    jimp = [j_cons.ImpulseFrictionCone(jm, nc=4, mu=0.6),
+            j_cons.ImpulseNormalForce(jm, nc=4, lz_min=0.1)]
+    timp = [it.ImpulseFrictionCone(tm, nc=4, mu=0.6),
+            it.ImpulseNormalForce(tm, nc=4, lz_min=0.1)]
 
     # two stages: a stance stage ending at a touchdown (switching rows on
     # two feet) and the impulse stage that follows it
@@ -99,12 +108,13 @@ def setup():
         imp_contact=np.array([[False] * 4, [True, False, False, True]]),
         sw_contact=np.array([[True, False, False, True], [False] * 4]),
         sw_pos=np.tile(feet, (NS, 1, 1)) + 0.02 * r(4, 3))
-    g0 = {c.name: -np.abs(r(c.dim)) - 0.1 for c in jcons}
+    g0 = {c.name: -np.abs(r(c.dim)) - 0.1 for c in jcons + jimp}
     slack = {k: -g + 0.01 * np.abs(r(g.shape[1])) for k, g in g0.items()}
     dual = {k: 1e-3 / s * (1.0 + 0.1 * np.abs(r(s.shape[1])))
             for k, s in slack.items()}
     return dict(jm=jm, tm=tm, jcm=jcm, tcm=tcm, jcost=jcost, tcost=tcost,
-                jcons=jcons, tcons=tcons, jctx=JContext(jm, jcm),
+                jcons=jcons, tcons=tcons, jimp=jimp, timp=timp,
+                jctx=JContext(jm, jcm),
                 tctx=TContext(tm, tcm), inputs=inputs, slack=slack, dual=dual,
                 jopt=JOptions(barrier=1e-3), topt=it.SolverOptions(barrier=1e-3),
                 feet=feet)
@@ -230,12 +240,21 @@ def test_transition_blocks_and_impulse_quantities(setup):
     assert float(tiq[1][1].abs().max()) > 0.0
 
 
-@pytest.fixture(scope="module")
-def linearized(setup):
-    """The two stages linearized by the port (as one batch) and by the JAX
-    package (one by one, impulse quantities recomputed in the stage)."""
-    s, x = setup, setup["inputs"]
+W_DV = 0.5 + np.arange(18) / 18.0
+W_LAM = 0.01 * (1.0 + np.arange(12))
+
+
+def _linearize_both(s, impulse):
+    """The two stages linearized by the port (as one batch, with the
+    named-space blocks of the KKT residual) and by the JAX package (one by
+    one, impulse quantities recomputed in the stage); ``impulse`` adds the
+    impulse cost and the impulse constraints on both sides."""
+    x = s["inputs"]
     boo = torch.from_numpy
+    tkw = dict(impulse_cost=it.ImpulseCost(T(W_DV), T(W_LAM)),
+               impulse_constraints=s["timp"]) if impulse else {}
+    jkw = dict(impulse_cost=JImpulseCost(_j(W_DV), _j(W_LAM)),
+               impulse_constraints=s["jimp"]) if impulse else {}
     tlin = t_stage.linearize_contact_stage(
         s["tm"], s["tcm"], s["tcost"], s["tcons"], s["topt"],
         T(x["t"]), T(x["dt"]), T(x["q"]), T(x["v"]), T(x["a"]), T(x["f"]),
@@ -243,7 +262,8 @@ def linearized(setup):
         {k: T(v) for k, v in s["slack"].items()},
         {k: T(v) for k, v in s["dual"].items()},
         boo(x["contact_active"]), T(x["p_ref"]), boo(x["imp_mask"]),
-        boo(x["imp_contact"]), boo(x["sw_contact"]), T(x["sw_pos"]), s["tctx"])
+        boo(x["imp_contact"]), boo(x["sw_contact"]), T(x["sw_pos"]), s["tctx"],
+        named_blocks=True, **tkw)
     jlins = [j_stage.linearize_contact_stage(
         s["jm"], s["jcm"], s["jcost"], s["jcons"], s["jopt"],
         x["t"][i], x["dt"][i], _j(x["q"][i]), _j(x["v"][i]), _j(x["a"][i]),
@@ -252,15 +272,26 @@ def linearized(setup):
         {k: _j(v[i]) for k, v in s["dual"].items()},
         _j(x["contact_active"][i]), _j(x["p_ref"][i]), _j(x["imp_mask"][i]),
         _j(x["imp_contact"][i]), _j(x["sw_contact"][i]), _j(x["sw_pos"][i]),
-        s["jctx"]) for i in range(NS)]
+        s["jctx"], **jkw) for i in range(NS)]
     return tlin, jlins
 
 
-def test_linearize_contact_stage_field_by_field(setup, linearized):
-    tlin, jlins = linearized
+@pytest.fixture(scope="module")
+def linearized(setup):
+    return _linearize_both(setup, impulse=False)
+
+
+def _close_lin(tlin, jlins):
+    """Every field of the port's StageLin against the JAX one; the port's
+    (Gq, Gv) against the blocks of the twin's dense chain matrix."""
     for i, jlin in enumerate(jlins):
         for f in dataclasses.fields(tlin):
-            t_val, j_val = getattr(tlin, f.name), getattr(jlin, f.name)
+            t_val = getattr(tlin, f.name)
+            if f.name in ("Gq", "Gv"):
+                cols = slice(0, 18) if f.name == "Gq" else slice(18, 36)
+                close(t_val[i], jlin.Tx[18:36, cols], f.name)
+                continue
+            j_val = getattr(jlin, f.name)
             if f.name == "quad":
                 for qf in dataclasses.fields(t_val):
                     close(getattr(t_val, qf.name)[i], getattr(j_val, qf.name),
@@ -271,11 +302,144 @@ def test_linearize_contact_stage_field_by_field(setup, linearized):
                     close(t_val[k][i], j_val[k], f"{f.name}[{k}]")
             else:
                 close(t_val[i], j_val, f.name)
+        # what the twin's chain matrices hold beside (Gq, Gv) is constant
+        np.testing.assert_array_equal(np.asarray(jlin.Tx[:18]),
+                                      np.eye(18, 36))
+        np.testing.assert_array_equal(np.asarray(jlin.Tw[36:]), np.eye(42))
+        assert not np.asarray(jlin.Tx[36:]).any()
+        assert not np.asarray(jlin.Tw[:36]).any()
+
+
+def test_linearize_contact_stage_field_by_field(setup, linearized):
+    tlin, jlins = linearized
+    _close_lin(tlin, jlins)
+    for jlin in jlins:
         # the control block of the dynamics equality is a constant in the port
         close(t_stage._control_block(setup["tm"], setup["tcm"]), jlin.E_wk, "E_wk")
     # the stance stage has switching rows, the impulse stage has none
     assert float(tlin.sw_mask[0].sum()) == 6.0
     assert float(tlin.sw_mask[1].sum()) == 0.0
+    # without an impulse cost the x-space extra gradient is zero
+    assert tlin.lx_extra.shape == (NS, 36) and not tlin.lx_extra.any()
+
+
+def test_named_blocks_only_when_asked(setup):
+    """The hot path allocates none of the KKT residual's blocks."""
+    s, x = setup, setup["inputs"]
+    boo = torch.from_numpy
+    tlin = t_stage.linearize_contact_stage(
+        s["tm"], s["tcm"], s["tcost"], s["tcons"], s["topt"],
+        T(x["t"]), T(x["dt"]), T(x["q"]), T(x["v"]), T(x["a"]), T(x["f"]),
+        T(x["u"]), T(x["q_next"]), T(x["v_next"]),
+        {k: T(v) for k, v in s["slack"].items()},
+        {k: T(v) for k, v in s["dual"].items()},
+        boo(x["contact_active"]), T(x["p_ref"]), boo(x["imp_mask"]),
+        boo(x["imp_contact"]), boo(x["sw_contact"]), T(x["sw_pos"]), s["tctx"])
+    for name in ("lnamed", "lx_extra", "E_named", "C_named", "F_named", "Gq",
+                 "Gv"):
+        assert getattr(tlin, name) is None
+
+
+def test_impulse_constraint_components(setup):
+    rng = np.random.default_rng(11)
+    lam = rng.standard_normal((NS, 12)) + np.tile([0.0, 0.0, 1.0], 4)
+    gate = np.array([[0.0] * 4, [1.0, 0.0, 0.0, 1.0]])
+    for tc, jc in zip(setup["timp"], setup["jimp"]):
+        assert (tc.name, tc.dim, tc.impulse) == (jc.name, jc.dim, True)
+        tg, tJ = tc.evaluate_lam(T(lam), T(gate))
+        for i in range(NS):
+            jg, jJ = jc.evaluate_lam(_j(lam[i]), _j(gate[i]))
+            close(tg[i], jg, jc.name)
+            close(tJ[i], jJ, jc.name + ".J")
+        assert (tg[0] == -1.0).all() and not tJ[0].any()
+
+
+def test_impulse_cost_and_constraint_branches(setup):
+    """The impulse stage with an impulse cost and both impulse constraints:
+    the x-space terms through Lx = [Lq, Lv], the (x|w) Jacobians of the
+    Lambda rows, lx_extra; on the stance stage the rows are inert."""
+    tlin, jlins = _linearize_both(setup, impulse=True)
+    _close_lin(tlin, jlins)
+    assert set(tlin.g) == {"u_lower", "u_upper", "friction_cone",
+                           "normal_force", "impulse_friction_cone",
+                           "impulse_normal_force"}
+    for name in ("impulse_friction_cone", "impulse_normal_force"):
+        assert tlin.Jz[name].shape == (NS, 4, 78)
+        assert not tlin.Jz[name][0].any() and not tlin.Jz[name][..., 36:].any()
+        assert float(tlin.Jz[name][1].abs().max()) > 0.0
+    assert not tlin.lx_extra[0].any() and float(tlin.lx_extra[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("impulse,slots", [(False, False), (True, False),
+                                           (True, True)])
+def test_evaluate_contact_stage(setup, impulse, slots):
+    """Value-only stage evaluation (cost + barrier, L1 violation), with the
+    impulse map run in the stage or handed in precomputed, on a (NS, 2) grid
+    of leading axes."""
+    s, x = setup, setup["inputs"]
+    boo = torch.from_numpy
+    tkw = dict(impulse_cost=it.ImpulseCost(T(W_DV), T(W_LAM)),
+               impulse_constraints=s["timp"]) if impulse else {}
+    jkw = dict(impulse_cost=JImpulseCost(_j(W_DV), _j(W_LAM)),
+               impulse_constraints=s["jimp"]) if impulse else {}
+    if slots:
+        vpost, lam = t_se.impulse_map(s["tm"], s["tcm"], T(x["q"]), T(x["v"]),
+                                      boo(x["imp_contact"]))
+        m = T(x["imp_mask"].astype(float))[:, None]
+        tkw["imp_values"] = (T(x["v"]) + m * (vpost - T(x["v"])), m * lam)
+    args = (T(x["t"]), T(x["dt"]), T(x["q"]), T(x["v"]), T(x["a"]), T(x["f"]),
+            T(x["u"]), T(x["q_next"]), T(x["v_next"]),
+            {k: T(v) for k, v in s["slack"].items()},
+            boo(x["contact_active"]), T(x["p_ref"]), boo(x["imp_mask"]),
+            boo(x["imp_contact"]), boo(x["sw_contact"]), T(x["sw_pos"]))
+    tc, tv = t_stage.evaluate_contact_stage(
+        s["tm"], s["tcm"], s["tcost"], s["tcons"], s["topt"], *args,
+        s["tctx"], **tkw)
+    assert tc.shape == tv.shape == (NS,)
+    for i in range(NS):
+        jc, jv = j_stage.evaluate_contact_stage(
+            s["jm"], s["jcm"], s["jcost"], s["jcons"], s["jopt"],
+            x["t"][i], x["dt"][i], _j(x["q"][i]), _j(x["v"][i]), _j(x["a"][i]),
+            _j(x["f"][i]), _j(x["u"][i]), _j(x["q_next"][i]),
+            _j(x["v_next"][i]), {k: _j(v[i]) for k, v in s["slack"].items()},
+            _j(x["contact_active"][i]), _j(x["p_ref"][i]),
+            _j(x["imp_mask"][i]), _j(x["imp_contact"][i]),
+            _j(x["sw_contact"][i]), _j(x["sw_pos"][i]), s["jctx"], **jkw)
+        close(tc[i], jc, "cost + barrier")
+        close(tv[i], jv, "violation")
+    if not slots:
+        # the same stages as a (NS, 2) grid of leading axes
+        grid = lambda a: ({k: grid(v) for k, v in a.items()}
+                          if isinstance(a, dict)
+                          else torch.stack([a, a], dim=1))
+        gc, gv = t_stage.evaluate_contact_stage(
+            s["tm"], s["tcm"], s["tcost"], s["tcons"], s["topt"],
+            *(grid(a) for a in args), s["tctx"], **tkw)
+        assert gc.shape == (NS, 2)
+        close(gc[:, 1], tc.numpy(), rtol=1e-13, atol=1e-13)
+        close(gv[:, 0], tv.numpy(), rtol=1e-13, atol=1e-13)
+
+
+def test_evaluate_agrees_with_linearization(setup):
+    """The value path measures what the linearization measures: cost and
+    barrier equal, the violation is the L1 norm of the same residuals."""
+    s, x = setup, setup["inputs"]
+    tlin, _ = _linearize_both(s, impulse=True)
+    boo = torch.from_numpy
+    tc, tv = t_stage.evaluate_contact_stage(
+        s["tm"], s["tcm"], s["tcost"], s["tcons"], s["topt"],
+        T(x["t"]), T(x["dt"]), T(x["q"]), T(x["v"]), T(x["a"]), T(x["f"]),
+        T(x["u"]), T(x["q_next"]), T(x["v_next"]),
+        {k: T(v) for k, v in s["slack"].items()},
+        boo(x["contact_active"]), T(x["p_ref"]), boo(x["imp_mask"]),
+        boo(x["imp_contact"]), boo(x["sw_contact"]), T(x["sw_pos"]), s["tctx"],
+        impulse_cost=it.ImpulseCost(T(W_DV), T(W_LAM)),
+        impulse_constraints=s["timp"])
+    close(tc, (tlin.cost + tlin.barrier).numpy(), rtol=1e-13, atol=1e-13)
+    viol = (tlin.xres.abs().sum(-1) + tlin.e.abs().sum(-1)
+            + (tlin.sw_mask * tlin.h).abs().sum(-1)
+            + sum(g.clamp(min=0).sum(-1) for g in tlin.g.values()))
+    close(tv, viol.numpy(), rtol=1e-13, atol=1e-13)
 
 
 def test_condense_and_dual_rhs(linearized):
@@ -309,6 +473,16 @@ def test_terminal_quad(setup):
         for t_x, j_x, name in zip(tt[:4], jt[:4], ("val", "l", "H", "barrier")):
             close(t_x[i], j_x, name)
         assert tt[4] == {} and jt[4] == {} and tt[5] == {} and jt[5] == {}
+        close(tt[6][i], jt[6], "lraw")
+        tc, tv = t_stage.evaluate_terminal(
+            s["tm"], s["tcost"], s["tcons"], s["topt"], 0.55, T(x["q"]),
+            T(x["v"]), empty, s["tctx"])
+        jc, jv = j_stage.evaluate_terminal(
+            s["jm"], s["jcost"], s["jcons"], s["jopt"], 0.55, _j(x["q"][i]),
+            _j(x["v"][i]), empty, s["jctx"])
+        close(tc[i], jc, "terminal value")
+        close(tv[i], jv, "terminal violation")
+        close(tc[i], tt[0][i].numpy(), rtol=1e-14, atol=1e-14)
 
 
 @pytest.mark.parametrize("t0,N", [(0.05, 20), (0.05, 4), (0.3, 8)])
