@@ -2,18 +2,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths through the entry points a user calls, all on
-the batched ANYmal trot MPC (``OCPSolver`` -> ``BatchedSolver``, N=20): the
+Drives the port's main paths through the entry points a user calls. On the
+batched ANYmal trot MPC (``OCPSolver`` -> ``BatchedSolver``, N=20): the
 Newton update without line search (B=512, f32), the update with the filter
 line search on its grid of 8 trials (B=512, f32), the update with the KKT
-residual, and ``BatchedSolver.solve`` to tolerance (B=64, f64). It builds the
-CUDA kernel from the sources in this checkout, holds both of its entry points
-(``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
-versions on the card, shows that every path went through them (launch counts,
-asserted per configuration), and checks the card's results against the port's
-own f64 runs on the CPU. Every failure raises, so the process then exits
-non-zero. It needs one CUDA device and no network. One JSON object per line;
-the last line is ``{"ok": true, "device": {...}}``.
+residual, and ``BatchedSolver.solve`` to tolerance (B=64, f64). On the
+fixed-base iiwa14 (``UnconstrOCPSolver`` -> ``BatchedSolver``, N=50, the JAX
+package's default options) without and with joint limits: the update (B=512,
+f32), ``BatchedSolver.solve`` (B=64, f64) and the accuracy against a
+converged f64 run. Both workloads again with the task-space, CoM and
+contact-force costs. It builds the CUDA kernel from the sources in this
+checkout, holds both of its entry points (``chol_tri_inv``,
+``chol_rescue_tri_inv``) against their plain PyTorch versions on the card,
+shows that every path went through them (launch counts, asserted per
+configuration), and checks the card's results against the port's own f64
+runs on the CPU. Every failure raises, so the process then exits non-zero. It
+needs one CUDA device and no network. One JSON object per line; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 import ctypes
 import importlib
@@ -28,7 +33,7 @@ import torch
 
 import idocp_tpu_torch as it
 from idocp_tpu_torch import ops
-from idocp_tpu_torch.models import anymal
+from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.ocp.condensing import condense
 from idocp_tpu_torch.ops import _build
 from idocp_tpu_torch.riccati import recursion
@@ -50,9 +55,16 @@ SOLVE_TOLS = (1e-6, 1e-4)
 # 20 Riccati steps; the control Hessian of the same 20 steps. The line search
 # adds the impulse map of its trial grid (M and the contact Schur complement
 # on batch x trials x 4 impulse slots).
+# The fixed-base horizon (BASELINE #1 / #2 of the JAX package: iiwa14, T=1,
+# N=50) has no contact block and no switching rows: one control-Hessian
+# factorization per Riccati step and nothing else.
+IIWA_BATCH, IIWA_N, IIWA_T, IIWA_T0 = 512, 50, 1.0, 0.0
+IIWA_ACC_UPDATES, IIWA_REF_UPDATES, U0_REF_TOL = 15, 25, 1e-4
+COST_UPDATES = 5
 LAUNCHES_PER_UPDATE = {
     "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
-    "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20}}
+    "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20},
+    "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N}}
 WRAPPERS = {"chol_tri_inv": ops.chol_tri_inv,
             "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
@@ -64,9 +76,11 @@ SOLVE_SHAPES = [(SOLVE_BATCH * N_HORIZON, 18, 18),
                 (SOLVE_BATCH * N_HORIZON, 12, 12),
                 (SOLVE_BATCH * 4, 18, 18), (SOLVE_BATCH * 4, 12, 12),
                 (SOLVE_BATCH, 12, 12)]
+# the control Hessian of the fixed-base update and of its solve
+IIWA_SHAPES = [(IIWA_BATCH, 7, 7), (SOLVE_BATCH, 7, 7)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
 RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
-                 (77, 18, 18), (45, 7, 7)]
+                 (77, 18, 18), (45, 7, 7)] + IIWA_SHAPES
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
 U0_TOL = 1e-3
 SOLVE_U0_TOL = 1e-6
@@ -346,7 +360,7 @@ def timing_row(fn, plain, shape, err, gen, floor_probe):
 def phase_kernels(gen):
     errs = {}
     for dtype in (torch.float32, torch.float64):
-        for shape in PATH_SHAPES + SOLVE_SHAPES + AWKWARD_SHAPES:
+        for shape in PATH_SHAPES + SOLVE_SHAPES + IIWA_SHAPES + AWKWARD_SHAPES:
             errs[(shape, dtype)] = check_against_plain(
                 spd(shape, dtype, gen), f"{shape} {dtype}")
         check_against_plain(schur_like(2048, dtype, gen), f"masked S {dtype}")
@@ -387,6 +401,11 @@ def phase_kernels(gen):
         rescue_errs[((BATCH, 12, 12), dtype, "spd")] = check_rescue_against_plain(
             A, 0.0, torch.zeros(BATCH, dtype=torch.long, device="cuda"),
             f"SPD {dtype}")
+        for shape in IIWA_SHAPES:
+            rescue_errs[(shape, dtype, "spd")] = check_rescue_against_plain(
+                spd(shape, dtype, gen), 0.0,
+                torch.zeros(shape[0], dtype=torch.long, device="cuda"),
+                f"SPD {shape} {dtype}")
         # neighbours of a rescued matrix: bit-identical to a batch without it
         G, rungs = ladder_batch((BATCH, 12, 12), dtype, gen, 0.0)
         calm = torch.where((rungs == 0)[:, None, None], G, A)
@@ -412,11 +431,11 @@ def phase_kernels(gen):
     rows = [timing_row(ops.chol_tri_inv, ops.chol_tri_inv_reference, shape,
                        errs[(shape, torch.float32)], gen, probe)
             for shape in PATH_SHAPES]
-    rescue_shape = (BATCH, 12, 12)   # the control Hessian of one Riccati step
+    # the control Hessian of one Riccati step: trot, then fixed base
     rescue_rows = [timing_row(
         ops.chol_rescue_tri_inv, ops.chol_rescue_tri_inv_reference,
-        rescue_shape, rescue_errs[(rescue_shape, torch.float32, "spd")], gen,
-        probe)]
+        shape, rescue_errs[(shape, torch.float32, "spd")], gen, probe)
+        for shape in ((BATCH, 12, 12), IIWA_SHAPES[0])]
     emit(phase="kernels", tolerance_f32=1e-4, tolerance_f64=1e-11,
          chol_tri_inv={"checked_shapes": len(errs) + 8, "shapes": rows},
          chol_rescue_tri_inv={"checked_cases": len(rescue_errs) + 4,
@@ -445,10 +464,14 @@ def options_for(line_search_on, kkt_error_on):
                             parallel_riccati=False)
 
 
-def build(batch, n_horizon, dtype, device, seed=0, options=None):
+def build(batch, n_horizon, dtype, device, seed=0, options=None,
+          contact_costs=False):
     """The benchmark workload through the port's API: warm-started whole-body
     trot MPC for ANYmal with one touchdown in the horizon, `batch` perturbed
-    scenarios sharing one schedule. Returns (bs, sol_b, q_b, v_b, sched)."""
+    scenarios sharing one schedule. ``contact_costs`` adds a
+    ``ContactForceCost`` (towards the standing forces) and a ``CoMCost``
+    (towards the standing center of mass). Returns (bs, sol_b, q_b, v_b,
+    sched)."""
     m = anymal.make_model_urdf(dtype=dtype, device=device)
     foot_ids = tuple(m.frame_id(n) for n in anymal.FOOT_FRAMES)
     cm = it.ContactModel(frame_ids=foot_ids, kp=25.0, kd=10.0)
@@ -460,6 +483,13 @@ def build(batch, n_horizon, dtype, device, seed=0, options=None):
         q_weight=w(q_w), v_weight=w([1.0] * 18), a_weight=w([1e-3] * 18),
         u_weight=w([1e-2] * 12), qf_weight=w(q_w), vf_weight=w([1.0] * 18),
         q_ref=q0)]
+    if contact_costs:
+        f_stand = [0.0, 0.0, float(m.mass.sum()) * 9.81 / 4] * 4
+        cost += [it.ContactForceCost(f_weight=w([1e-3] * 12),
+                                     f_ref=w(f_stand)),
+                 it.CoMCost(weight=w([10.0] * 3),
+                            weight_terminal=w([100.0] * 3),
+                            com_ref=kinematics.com(m, q0))]
     cons = [it.JointTorquesLowerLimit(m), it.JointTorquesUpperLimit(m),
             it.FrictionCone(m, nc=4, mu=0.7)]
     options = options or options_for(False, False)
@@ -533,11 +563,12 @@ def phase_main_path(gpu):
     return launches, (bs, sol_b, q_b, v_b, sched)
 
 
-def phase_split(gpu, state):
+def phase_split(gpu, bs, sol_b, t, q_b, v_b, *extra, workload="trot"):
     """Where one update's time goes: the update's own steps called one by
-    one, each between synchronisations (host clock)."""
-    bs, sol_b, q_b, v_b, sched = state
+    one, each between synchronisations (host clock). ``extra`` is what the
+    solver takes after the measured state (the trot's schedule)."""
     solver = bs.solver
+    batch, n_horizon = sol_b.a.shape[:2]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -551,23 +582,25 @@ def phase_split(gpu, state):
     reps = 5
     # the line search's value-only pass alone: the current point as every
     # trial of a (batch, trials) grid, flattened as the update flattens it
-    tile = lambda x: x[:, None].expand((BATCH, LS_TRIALS) + x.shape[1:]).reshape(
-        (BATCH * LS_TRIALS,) + x.shape[1:])
+    tile = lambda x: x[:, None].expand(
+        (batch, LS_TRIALS) + x.shape[1:]).reshape(
+        (batch * LS_TRIALS,) + x.shape[1:])
     grid_sol, grid_q, grid_v = sol_b.map(tile), tile(q_b), tile(v_b)
     # ... and the same pass on one trial per scenario: the same launches on an
     # eighth of the data, so the difference is the device's share
     evaluate_grid = evaluate_one_trial = 0.0
     with torch.no_grad():
         for _ in range(reps):
-            _, ms = timed(lambda: solver.evaluate_all(grid_sol, T0, grid_q,
-                                                      grid_v, sched))
+            _, ms = timed(lambda: solver.evaluate_all(grid_sol, t, grid_q,
+                                                      grid_v, *extra))
             evaluate_grid += ms / reps
-            _, ms = timed(lambda: solver.evaluate_all(sol_b, T0, q_b, v_b,
-                                                      sched))
+            _, ms = timed(lambda: solver.evaluate_all(sol_b, t, q_b, v_b,
+                                                      *extra))
             evaluate_one_trial += ms / reps
-            lin, ms = timed(lambda: solver.linearize_all(sol_b, T0, q_b, v_b, sched))
+            lin, ms = timed(lambda: solver.linearize_all(sol_b, t, q_b, v_b,
+                                                         *extra))
             split["linearize"] += ms / reps
-            term, ms = timed(lambda: solver.terminal_fn(sol_b, T0))
+            term, ms = timed(lambda: solver.terminal_fn(sol_b, t))
             split["terminal"] += ms / reps
             cs, ms = timed(lambda: condense(
                 lin.quad, lin.T_x, lin.T_k, lin.t0, lin.F_x, lin.F_w, lin.xres,
@@ -579,7 +612,7 @@ def phase_split(gpu, state):
             dx0 = torch.zeros_like(term[1])
             _, ms = timed(lambda: recursion.forward_rollout(dx0, cs, pols))
             split["rollout"] += ms / reps
-            _, ms = timed(lambda: bs.update(sol_b, T0, q_b, v_b, sched))
+            _, ms = timed(lambda: bs.update(sol_b, t, q_b, v_b, *extra))
             split["whole_update"] += ms / reps
         split["expand_and_step"] = split["whole_update"] - sum(
             v for k, v in split.items() if k != "whole_update")
@@ -588,7 +621,7 @@ def phase_split(gpu, state):
         # stage's G = Quu + B'PB from the terminal P), through the kernel as
         # the path runs it and through the plain version as a yardstick, in
         # turns
-        last = recursion._stage(cs, N_HORIZON - 1)
+        last = recursion._stage(cs, n_horizon - 1)
         G = last.Quu + last.B.mT @ term[2] @ last.B
         G = (0.5 * (G + G.mT)).contiguous()
         both = {"kernel": lambda: ops.chol_rescue_tri_inv(G, 0.0),
@@ -598,27 +631,27 @@ def phase_split(gpu, state):
             fn()                                               # warm-up
         for which in ("kernel", "plain", "plain", "kernel") * 5:
             factor[which].append(timed(both[which])[1])
-    emit(phase="split_ms", gpu=gpu, **split,
+    emit(phase="split_ms", workload=workload, gpu=gpu, **split,
          evaluate_grid=evaluate_grid, evaluate_one_trial=evaluate_one_trial,
-         evaluate_grid_stages=BATCH * LS_TRIALS * N_HORIZON,
+         evaluate_grid_stages=batch * LS_TRIALS * n_horizon,
          g_factorization_shape=list(G.shape),
          g_factorization_kernel_ms=float(np.median(factor["kernel"])),
          g_factorization_plain_ms=float(np.median(factor["plain"])),
          g_factorization_runs=len(factor["kernel"]))
 
 
-def timed_updates(bs, sol_b, q_b, v_b, sched, updates):
+def timed_updates(bs, sol_b, args, updates, t=T0):
     """One warm-up update, then ``updates`` timed ones (host clock, ending in
-    a synchronisation). Returns (solution, per-update stats, seconds,
-    warm-up seconds)."""
+    a synchronisation); ``args`` = (q_b, v_b, *extra). Returns (solution,
+    per-update stats, seconds, warm-up seconds)."""
     t0 = time.time()
-    sol_b, _ = bs.update(sol_b, T0, q_b, v_b, sched)
+    sol_b, _ = bs.update(sol_b, t, *args)
     torch.cuda.synchronize()
     warmup_s = time.time() - t0
     history = []
     t0 = time.time()
     for _ in range(updates):
-        sol_b, stats = bs.update(sol_b, T0, q_b, v_b, sched)
+        sol_b, stats = bs.update(sol_b, t, *args)
         history.append(stats)
     torch.cuda.synchronize()
     return sol_b, history, time.time() - t0, warmup_s
@@ -631,8 +664,8 @@ def phase_line_search(gpu):
                                        options=options_for(True, False))
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    sol_b, history, wall, warmup_s = timed_updates(bs, sol_b, q_b, v_b, sched,
-                                                   ITERS)
+    sol_b, history, wall, warmup_s = timed_updates(bs, sol_b,
+                                                   (q_b, v_b, sched), ITERS)
     launches = read_launches("line_search", ITERS + 1)
     peak = torch.cuda.max_memory_allocated()
 
@@ -683,7 +716,8 @@ def phase_kkt_and_solve(gpu, line_search_ms):
     bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32, "cuda",
                                        options=options)
     reset_launches()
-    sol_b, history, wall, _ = timed_updates(bs, sol_b, q_b, v_b, sched, updates)
+    sol_b, history, wall, _ = timed_updates(bs, sol_b, (q_b, v_b, sched),
+                                            updates)
     launches = read_launches("line_search", updates + 1)
     kkt = torch.stack([s.kkt_error for s in history])
     if not bool(torch.isfinite(kkt).all()):
@@ -707,19 +741,21 @@ def phase_kkt_and_solve(gpu, line_search_ms):
     return total
 
 
-def solve_on_card_and_cpu(gpu, problems, tol):
+def solve_on_card_and_cpu(gpu, problems, tol, t=T0, config="line_search",
+                          workload="trot", phase="kkt_and_solve"):
     """``BatchedSolver.solve`` to ``tol`` in f64 on the card; its first
-    scenarios again on the CPU; both held against each other."""
+    scenarios again on the CPU; both held against each other. ``problems``
+    maps a device to (bs, sol_b, q_b, v_b, *extra)."""
     out = {}
     for device, n in (("cuda", SOLVE_BATCH), ("cpu", CPU_SCENARIOS)):
-        bs, sol_b, q_b, v_b, sched = problems[device]
+        bs, sol_b, q_b, v_b, *extra = problems[device]
         sol_b, q_b, v_b = sol_b.map(lambda x: x[:n]), q_b[:n], v_b[:n]
         if device == "cuda":
-            first_kkt = bs.kkt_error(sol_b, T0, q_b, v_b, sched)
+            first_kkt = bs.kkt_error(sol_b, t, q_b, v_b, *extra)
             reset_launches()
             torch.cuda.synchronize()
         t0 = time.time()
-        sol_b, iters, kkt, done = bs.solve(sol_b, T0, q_b, v_b, sched, tol=tol,
+        sol_b, iters, kkt, done = bs.solve(sol_b, t, q_b, v_b, *extra, tol=tol,
                                            max_iterations=SOLVE_CAP)
         if device == "cuda":
             torch.cuda.synchronize()
@@ -727,7 +763,7 @@ def solve_on_card_and_cpu(gpu, problems, tol):
             # the loop ran one iteration for each flag it read, and the first
             host_reads = bs.solver.host_reads
             loops = host_reads + 1
-            launches = read_launches("line_search", loops)
+            launches = read_launches(config, loops)
         out[device] = (sol_b.u[:, 0].cpu(), iters.cpu(), kkt.cpu(), done.cpu())
 
     (u0_g, it_g, kkt_g, done_g), (u0_c, it_c, kkt_c, done_c) = (
@@ -754,8 +790,9 @@ def solve_on_card_and_cpu(gpu, problems, tol):
     drop = float(first_kkt.median()) / float(kkt_g.median())
     if not drop >= 1e2:
         raise AssertionError(f"median KKT error fell only {drop:.3g}x")
-    emit(phase="kkt_and_solve", part="solve_f64", gpu=gpu, batch=SOLVE_BATCH,
-         horizon=N_HORIZON, dtype="float64", tol=tol,
+    emit(phase=phase, part="solve_f64", workload=workload, gpu=gpu,
+         batch=SOLVE_BATCH, horizon=int(problems["cuda"][1].a.shape[1]),
+         dtype="float64", tol=tol,
          max_iterations=SOLVE_CAP, loop_iterations=loops,
          ms_per_iteration=1e3 * seconds / loops, solve_seconds=seconds,
          host_reads=host_reads, host_reads_per_iteration=host_reads / loops,
@@ -794,6 +831,183 @@ def phase_accuracy(gpu, line_search_on):
          u0_scale=float(u0["cpu"].abs().max()))
 
 
+# ---------------------------------------------------------------------------
+# the fixed-base family: iiwa14, N=50
+# ---------------------------------------------------------------------------
+
+def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False):
+    """BASELINE #1 (no limits) / #2 (joint position, velocity and torque
+    limits) of the JAX package (``tools/accuracy_oracle.py::run_iiwa``)
+    through the port's API: iiwa14 from its URDF, the same
+    ``ConfigurationSpaceCost``, T=1, N=50, the default options (filter line
+    search, KKT residual). ``batch`` measured states at rest, the joint
+    positions drawn uniformly within a quarter of their limits, all warm-
+    started from the zero configuration. ``task_space`` adds a
+    ``TaskSpace6DCost`` on ``ee_frame`` (a fixed pose) and a
+    ``TaskSpace3DCost`` on it (a moving target, a callable of t). Returns
+    (bs, sol_b, q_b, v_b)."""
+    m = iiwa14.make_model_urdf(dtype=dtype, device=device)
+    w = lambda x: torch.tensor(x, dtype=dtype, device=m.device)
+    q_ref = w([0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0])
+    cost = [it.ConfigurationSpaceCost(
+        q_weight=w([10.0] * 7), v_weight=w([1.0] * 7), a_weight=w([0.01] * 7),
+        u_weight=w([0.01] * 7), qf_weight=w([10.0] * 7),
+        vf_weight=w([1.0] * 7), q_ref=q_ref)]
+    if task_space:
+        ee = m.frame_id("ee_frame")
+        R_ref, p_ref = kinematics.frame_pose(m, q_ref, ee)
+        moving = lambda t: p_ref + 0.1 * torch.stack(
+            [torch.sin(2 * t), 1 - torch.cos(2 * t), 0 * t], dim=-1)
+        cost += [it.TaskSpace6DCost(ee, w([1.0] * 6), w([10.0] * 6),
+                                    rot_ref=R_ref, pos_ref=p_ref + 0.05),
+                 it.TaskSpace3DCost(ee, w([10.0] * 3), w([100.0] * 3),
+                                    pos_ref=moving)]
+    cons = it.default_joint_limits(m) if with_limits else []
+    solver = it.UnconstrOCPSolver(m, cost, cons, T=IIWA_T, N=IIWA_N,
+                                  options=it.SolverOptions(barrier=1e-3),
+                                  dtype=dtype, device=device)
+    solver.set_solution(w([0.0] * 7), w([0.0] * 7))
+    solver.init_constraints()
+    rng = np.random.default_rng(seed)
+    q_max = m.q_max.cpu().numpy()
+    q_b = w(0.25 * q_max * rng.uniform(-1.0, 1.0, (batch, 7)))
+    sol_b = it.batch_solution(solver.solution, batch)
+    return it.BatchedSolver(solver), sol_b, q_b, torch.zeros_like(q_b)
+
+
+def iiwa_workload(with_limits):
+    return "iiwa14_limits" if with_limits else "iiwa14"
+
+
+def phase_unconstr(gpu):
+    """The fixed-base update at full width (B=512, N=50, f32, default
+    options) on BASELINE #1 and #2, its time split, and
+    ``BatchedSolver.solve`` in f64 on #2 against the CPU. Returns the
+    launches of the counted runs."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    for with_limits in (False, True):
+        workload = iiwa_workload(with_limits)
+        bs, sol_b, q_b, v_b = build_iiwa(IIWA_BATCH, torch.float32, "cuda",
+                                         with_limits)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sol_b, history, wall, warmup_s = timed_updates(
+            bs, sol_b, (q_b, v_b), ITERS, t=IIWA_T0)
+        launches = read_launches("unconstr", ITERS + 1)
+        peak = torch.cuda.max_memory_allocated()
+        total = {k: total[k] + launches[k] for k in total}
+        accepted = torch.stack([s.ls_accepted for s in history])
+        frozen = int(torch.stack([s.alpha_primal <= 0 for s in history]).sum())
+        picked = torch.stack([s.ls_trial for s in history])[accepted]
+        kkt = torch.stack([s.kkt_error for s in history])
+        if not bool(torch.isfinite(history[-1].cost).all()
+                    and torch.isfinite(kkt).all()):
+            raise AssertionError(f"{workload}: non-finite cost or KKT error")
+        if frozen != 0:
+            raise AssertionError(
+                f"{workload}: {frozen} frozen scenario-updates")
+        if sol_b.u.shape != (IIWA_BATCH, IIWA_N, 7) or not bool(
+                torch.isfinite(sol_b.u).all()):
+            raise AssertionError(f"{workload}: bad torque trajectory")
+        emit(phase="unconstr", workload=workload, gpu=gpu, batch=IIWA_BATCH,
+             horizon=IIWA_N, dtype="float32", iters=ITERS, warmup_s=warmup_s,
+             ms_per_update=1e3 * wall / ITERS,
+             solves_per_s=IIWA_BATCH * ITERS / wall,
+             peak_memory_bytes=peak,
+             median_kkt_error_per_update=kkt.median(dim=1).values.tolist(),
+             ls_accepted_share=float(accepted.float().mean()),
+             accepted_trial_histogram=torch.bincount(
+                 picked, minlength=LS_TRIALS).tolist(),
+             grid_stages=IIWA_BATCH * LS_TRIALS * IIWA_N,
+             launches=launches,
+             launches_per_update={k: v // (ITERS + 1)
+                                  for k, v in launches.items()})
+        phase_split(gpu, bs, sol_b, IIWA_T0, q_b, v_b, workload=workload)
+        del bs, sol_b, history
+
+    problems = {device: build_iiwa(SOLVE_BATCH, torch.float64, device, True)
+                for device in ("cuda", "cpu")}
+    solve_launches = solve_on_card_and_cpu(
+        gpu, problems, SOLVE_TOLS[0], t=IIWA_T0, config="unconstr",
+        workload=iiwa_workload(True), phase="unconstr")
+    return {k: total[k] + solve_launches[k] for k in total}
+
+
+def phase_unconstr_accuracy(gpu):
+    """As the JAX package's accuracy oracle compares: f32 on the card after
+    15 updates against the port's f64 on the CPU after 25 (converged), the
+    first scenarios of the batch, both configurations."""
+    n = CPU_SCENARIOS
+    for with_limits in (False, True):
+        u0, kkt = {}, {}
+        for dtype, device, updates in (
+                (torch.float32, "cuda", IIWA_ACC_UPDATES),
+                (torch.float64, "cpu", IIWA_REF_UPDATES)):
+            bs, sol_b, q_b, v_b = build_iiwa(IIWA_BATCH, dtype, device,
+                                             with_limits)
+            sol_b = sol_b.map(lambda x: x[:n])
+            for _ in range(updates):
+                sol_b, stats = bs.update(sol_b, IIWA_T0, q_b[:n], v_b[:n])
+            u0[device] = sol_b.u[:, 0].double().cpu()
+            kkt[device] = float(stats.kkt_error.max())
+        err = float((u0["cuda"] - u0["cpu"]).abs().max())
+        if not err <= U0_REF_TOL:
+            raise AssertionError(
+                f"{iiwa_workload(with_limits)}: max|u0_f32_cuda - "
+                f"u0_f64_cpu| = {err:.3e} above {U0_REF_TOL:g}")
+        emit(phase="accuracy", workload=iiwa_workload(with_limits), gpu=gpu,
+             scenarios=n, updates_f32=IIWA_ACC_UPDATES,
+             updates_f64_reference=IIWA_REF_UPDATES, max_abs_u0_err=err,
+             tolerance=U0_REF_TOL, u0_scale=float(u0["cpu"].abs().max()),
+             max_kkt_error_f64_reference=kkt["cpu"],
+             max_kkt_error_f32=kkt["cuda"])
+
+
+def phase_costs(gpu):
+    """The task-space, CoM and contact-force cost components on the card:
+    BASELINE #2 with ``TaskSpace6DCost`` + ``TaskSpace3DCost``, and the trot
+    with ``ContactForceCost`` + ``CoMCost``, 5 updates at B=512 in f32, u0
+    against the port's own f64 run on the CPU (first scenarios). Returns the
+    launches of the counted runs."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    n = CPU_SCENARIOS
+    cases = (
+        ("iiwa14_limits_task_space", "unconstr", IIWA_T0,
+         lambda dtype, device: build_iiwa(IIWA_BATCH, dtype, device, True,
+                                          task_space=True)),
+        ("trot_contact_force_com", "plain", T0,
+         lambda dtype, device: build(BATCH, N_HORIZON, dtype, device,
+                                     contact_costs=True)))
+    for workload, config, t, make in cases:
+        u0 = {}
+        for dtype, device in ((torch.float32, "cuda"), (torch.float64, "cpu")):
+            bs, sol_b, q_b, v_b, *extra = make(dtype, device)
+            if device == "cpu":
+                sol_b, q_b, v_b = sol_b.map(lambda x: x[:n]), q_b[:n], v_b[:n]
+            else:
+                card_batch = int(q_b.shape[0])
+                reset_launches()
+            for _ in range(COST_UPDATES):
+                sol_b, stats = bs.update(sol_b, t, q_b, v_b, *extra)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches(config, COST_UPDATES)
+                total = {k: total[k] + launches[k] for k in total}
+                if not bool(torch.isfinite(sol_b.u).all()
+                            and torch.isfinite(stats.cost).all()):
+                    raise AssertionError(f"{workload}: non-finite result")
+            u0[device] = sol_b.u[:n, 0].double().cpu()
+        err = float((u0["cuda"] - u0["cpu"]).abs().max())
+        if not err <= U0_TOL:
+            raise AssertionError(f"{workload}: max|u0_f32_cuda - u0_f64_cpu| "
+                                 f"= {err:.3e} above {U0_TOL:g}")
+        emit(phase="costs", workload=workload, gpu=gpu, batch=card_batch,
+             updates=COST_UPDATES,
+             scenarios_compared=n, max_abs_u0_err=err, tolerance=U0_TOL,
+             u0_scale=float(u0["cpu"].abs().max()), launches=launches)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -815,14 +1029,20 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
     launches, state = phase_main_path(gpu)
-    phase_split(gpu, state)
-    del state
+    bs, sol_b, q_b, v_b, sched = state
+    phase_split(gpu, bs, sol_b, T0, q_b, v_b, sched)
+    del state, bs, sol_b
     ls_launches, ls_ms = phase_line_search(gpu)
     solve_launches = phase_kkt_and_solve(gpu, ls_ms)
     launches = {k: launches[k] + ls_launches[k] + solve_launches[k]
                 for k in launches}
     phase_accuracy(gpu, line_search_on=False)
     phase_accuracy(gpu, line_search_on=True)
+    unconstr_launches = phase_unconstr(gpu)
+    phase_unconstr_accuracy(gpu)
+    cost_launches = phase_costs(gpu)
+    launches = {k: launches[k] + unconstr_launches[k] + cost_launches[k]
+                for k in launches}
 
     print(gpu)
     kernels = []

@@ -3,21 +3,26 @@
 Same sub-packages and module names as the JAX package; every module's
 docstring names its twin file. The port imports ``torch`` and numpy only.
 Entry points take an explicit ``device`` and ``dtype``, default to
-``device="cuda"`` and raise when there is no card. Ported so far: the
-whole-body ``OCPSolver`` with a serial Riccati sweep (Newton update with the
-filter line search and the KKT residual, ``solve`` with barrier continuation,
-the LQR policy, impulse cost and impulse constraints), ``BatchedSolver`` on a
-schedule shared by the batch, and everything below them, down to the
-hand-written CUDA kernel behind ``ops.chol_tri_inv`` and
-``ops.chol_rescue_tri_inv``.
+``device="cuda"`` and raise when there is no card. Ported so far: both solver
+families with a serial Riccati sweep, the whole-body ``OCPSolver`` (Newton
+update with the filter line search and the KKT residual, ``solve`` with
+barrier continuation, the LQR policy, impulse cost and impulse constraints)
+and the fixed-base ``UnconstrOCPSolver``, ``BatchedSolver`` over either (on a
+schedule shared by the batch), every cost and constraint component, and
+everything below them, down to the hand-written CUDA kernel behind
+``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``.
 """
-from .constraints.components import (ConstraintComponent, ContactNormalForce,
-                                     FrictionCone, ImpulseConstraintComponent,
-                                     ImpulseFrictionCone, ImpulseNormalForce,
-                                     JointTorquesLowerLimit,
-                                     JointTorquesUpperLimit)
+from .constraints.components import (
+    ConstraintComponent, ContactNormalForce, FrictionCone,
+    ImpulseConstraintComponent, ImpulseFrictionCone, ImpulseNormalForce,
+    JointAccelerationLowerLimit, JointAccelerationUpperLimit,
+    JointPositionLowerLimit, JointPositionUpperLimit, JointTorquesLowerLimit,
+    JointTorquesUpperLimit, JointVelocityLowerLimit, JointVelocityUpperLimit,
+    default_joint_limits)
 from .cost.base import CostComponent
-from .cost.components import ConfigurationSpaceCost, ImpulseCost
+from .cost.components import (CoMCost, ConfigurationSpaceCost,
+                              ContactForceCost, ImpulseCost, TaskSpace3DCost,
+                              TaskSpace6DCost)
 from .hybrid.schedule import (ContactSequence, DiscreteEvent, HorizonSchedule,
                               static_schedule)
 from .ocp.data import Solution, zero_solution
@@ -29,16 +34,22 @@ from .robot.urdf import load_urdf
 from .solver.mpc import TrotGait, schedule_at
 from .solver.ocp_solver import OCPSolver
 from .solver.options import SolverOptions
+from .solver.unconstr_ocp_solver import UnconstrOCPSolver
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ModelBuilder", "RobotModel", "difference", "integrate", "load_urdf",
     "ContactModel", "CostComponent", "ConfigurationSpaceCost", "ImpulseCost",
+    "TaskSpace3DCost", "TaskSpace6DCost", "CoMCost", "ContactForceCost",
     "ConstraintComponent", "FrictionCone", "ContactNormalForce",
-    "JointTorquesLowerLimit", "JointTorquesUpperLimit",
+    "JointPositionLowerLimit", "JointPositionUpperLimit",
+    "JointVelocityLowerLimit", "JointVelocityUpperLimit",
+    "JointAccelerationLowerLimit", "JointAccelerationUpperLimit",
+    "JointTorquesLowerLimit", "JointTorquesUpperLimit", "default_joint_limits",
     "ImpulseConstraintComponent", "ImpulseFrictionCone", "ImpulseNormalForce",
     "ContactSequence", "DiscreteEvent", "HorizonSchedule", "static_schedule",
     "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
-    "OCPSolver", "TrotGait", "schedule_at", "BatchedSolver", "batch_solution",
+    "OCPSolver", "UnconstrOCPSolver", "TrotGait", "schedule_at",
+    "BatchedSolver", "batch_solution",
 ]

@@ -1,9 +1,9 @@
 """Inequality-constraint components on the trot-MPC path.
 
-Twin of ``idocp_tpu/constraints/components.py`` (``JointTorquesLowerLimit``,
-``JointTorquesUpperLimit``, ``FrictionCone``, ``ContactNormalForce`` and the
-impulse variants ``ImpulseFrictionCone``, ``ImpulseNormalForce``). Each
-component defines
+Twin of ``idocp_tpu/constraints/components.py`` (all of it: the joint
+position, velocity, acceleration and torque limits, ``default_joint_limits``,
+``FrictionCone``, ``ContactNormalForce`` and the impulse variants
+``ImpulseFrictionCone``, ``ImpulseNormalForce``). Each component defines
 g(z) <= 0 of fixed dimension with Jacobians per variable block; the
 interior-point fold-in happens in the stage assembly. Arguments may carry
 leading dimensions; Jacobians that do not depend on the state are returned
@@ -28,8 +28,137 @@ class ConstraintComponent:
 
     def is_terminal(self) -> bool:
         """Whether this constraint also applies at the terminal stage
-        (torque and force constraints do not)."""
+        (position / velocity limits do; torque / acceleration / force
+        constraints do not)."""
         return False
+
+
+def _act_selector(model, like):
+    """(nu x nv) selector of the actuated tangent coordinates."""
+    nu, nv = model.nu, model.nv
+    return torch.cat([torch.zeros(nu, nv - nu, dtype=like.dtype,
+                                  device=like.device),
+                      torch.eye(nu, dtype=like.dtype, device=like.device)],
+                     dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class JointPositionLowerLimit(ConstraintComponent):
+    """q_min - q <= 0 on the actuated joints."""
+    model: object
+    name: str = "q_lower"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (m.q_min[m.nq - m.nu:] - q[..., m.nq - m.nu:],
+                {"q": -_act_selector(m, q)})
+
+    def is_terminal(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class JointPositionUpperLimit(ConstraintComponent):
+    """q - q_max <= 0 on the actuated joints."""
+    model: object
+    name: str = "q_upper"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (q[..., m.nq - m.nu:] - m.q_max[m.nq - m.nu:],
+                {"q": _act_selector(m, q)})
+
+    def is_terminal(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class JointVelocityLowerLimit(ConstraintComponent):
+    """-v - v_max <= 0 on the actuated joints."""
+    model: object
+    name: str = "v_lower"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (-v[..., m.nv - m.nu:] - m.v_limit[m.nv - m.nu:],
+                {"v": -_act_selector(m, v)})
+
+    def is_terminal(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class JointVelocityUpperLimit(ConstraintComponent):
+    """v - v_max <= 0 on the actuated joints."""
+    model: object
+    name: str = "v_upper"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (v[..., m.nv - m.nu:] - m.v_limit[m.nv - m.nu:],
+                {"v": _act_selector(m, v)})
+
+    def is_terminal(self):
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class JointAccelerationLowerLimit(ConstraintComponent):
+    """-a - a_max <= 0 on the actuated joints. A URDF has no acceleration
+    bound, so ``a_max`` (nu,) defaults to 1e3 everywhere."""
+    model: object
+    a_max: object = None
+    name: str = "a_lower"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    def _amax(self, like):
+        if self.a_max is not None:
+            return self.a_max
+        return torch.full((self.model.nu,), 1e3, dtype=like.dtype,
+                          device=like.device)
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (-a[..., m.nv - m.nu:] - self._amax(a),
+                {"a": -_act_selector(m, a)})
+
+
+@dataclasses.dataclass(frozen=True)
+class JointAccelerationUpperLimit(ConstraintComponent):
+    """a - a_max <= 0 on the actuated joints (``a_max`` as the lower limit)."""
+    model: object
+    a_max: object = None
+    name: str = "a_upper"
+
+    @property
+    def dim(self):
+        return self.model.nu
+
+    _amax = JointAccelerationLowerLimit._amax
+
+    def evaluate(self, ctx, q, v, a, f, u, fmask):
+        m = self.model
+        return (a[..., m.nv - m.nu:] - self._amax(a),
+                {"a": _act_selector(m, a)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,3 +311,13 @@ class ImpulseNormalForce(ImpulseConstraintComponent):
 
     def evaluate_lam(self, lam, gate):
         return _normal(_per_contact(lam, self.nc), gate > 0.5, self.lz_min)
+
+
+def default_joint_limits(model):
+    """The standard constraint set of a joint-limited robot: position,
+    velocity and torque limits, lower and upper."""
+    return [
+        JointPositionLowerLimit(model), JointPositionUpperLimit(model),
+        JointVelocityLowerLimit(model), JointVelocityUpperLimit(model),
+        JointTorquesLowerLimit(model), JointTorquesUpperLimit(model),
+    ]

@@ -34,8 +34,9 @@ def model_from_numpy(d: dict, dtype=torch.float64, device="cuda") -> RobotModel:
     device = resolve_device(device)
     meta = {k: d[k] if isinstance(d[k], str) else tuple(d[k])
             for k in MODEL_META_FIELDS}
-    tensors = {k: torch.as_tensor(np.asarray(d[k], dtype=np.float64),
-                                  dtype=dtype, device=device)
+    # a copy: the arrays may be read-only views of another package's buffers
+    tensors = {k: torch.tensor(np.asarray(d[k], dtype=np.float64),
+                               dtype=dtype, device=device)
                for k in MODEL_TENSOR_FIELDS}
     return RobotModel(**meta, **tensors)
 
@@ -83,8 +84,8 @@ def schedule_to_numpy(sched: HorizonSchedule) -> dict:
 
 def policy_from_numpy(d: dict, dtype=torch.float64, device="cuda") -> LQRPolicy:
     device = resolve_device(device)
-    return LQRPolicy(**{k: torch.as_tensor(np.asarray(d[k], dtype=np.float64),
-                                           dtype=dtype, device=device)
+    return LQRPolicy(**{k: torch.tensor(np.asarray(d[k], dtype=np.float64),
+                                        dtype=dtype, device=device)
                         for k in POLICY_FIELDS})
 
 

@@ -1,16 +1,18 @@
 """Stage linearization + condensing: the per-stage hot path.
 
-Twin of ``idocp_tpu/ocp/stage.py`` (the whole-body contact stage and the
-terminal stage). One plain function per stage type; every argument carries
-the same leading dimensions (the solver passes scenarios x stages flattened
-to one axis), where the twin is written for one stage and batched by vmap.
+Twin of ``idocp_tpu/ocp/stage.py`` (the whole-body contact stage, the
+fixed-base stage and the terminal stage). One plain function per stage type;
+every argument carries the same leading dimensions (the solver passes
+scenarios x stages flattened to one axis), where the twin is written for one
+stage and batched by vmap.
 
 Everything is assembled in the *named variable space*
     z_named = (dq, dv_eff, a, f, u)   (dims nv, nv, nv, nf, nu)
 where v_eff is the post-impulse velocity (= v at non-impulse stages); the
 chain products then map named-space quantities into the stage's (x, w)
-layout, w = (a, f, u), eliminated (a, f), control u, including the
-impulse-map Jacobians (Gq, Gv).
+layout, including the impulse-map Jacobians (Gq, Gv). Layouts:
+  contact stage:   w = (a, f, u), eliminated (a, f), control u
+  fixed-base stage: w = (u, a), eliminated u, control a; nf = 0
 
 The dense named-space blocks that only feed the KKT-residual norm
 (``lnamed``, ``lx_extra``, ``E_named``, ``F_named``, ``C_named``) are
@@ -18,8 +20,10 @@ computed only when the caller asks for them (``named_blocks=True``): the twin
 leaves their removal on the hot path to the compiler, eager PyTorch would
 compute them on every stage of every update. The dense chain matrices
 ``Tx`` / ``Tw`` and ``E_we`` are never formed: the chain is applied
-structurally from (Gq, Gv). Left out against the twin: the unconstrained
-fixed-base stage.
+structurally from (Gq, Gv). The fixed-base stage keeps its named blocks in
+its own w order, (dq, dv, u, a): its chain over x is the identity (Gq = 0,
+Gv = I) and the one over w then selects, so the KKT residual reads the twin's
+(x | u, a) entries in the twin's order.
 
 Numerical-robustness invariants (f32 hot path): no dense matrix inverse
 anywhere (the contact block is factorized by Cholesky + SPD Schur
@@ -472,6 +476,85 @@ def linearize_contact_stage(
     )
 
 
+def linearize_unconstr_stage(
+        model: RobotModel, costs, constraints, options,
+        t, dt, q, v, a, u, q_next, v_next, slack, dual, ctx=None,
+        named_blocks=False) -> StageLin:
+    """Linearize + condense fixed-base, contact-free stages: w = (u, a),
+    eliminate u, control a. The dynamics equality ID(q, v, a) - u = 0 has
+    E_we = -I, so the elimination operators are free:
+    (T_x, T_k, t0) = (E_x, E_wk, e) with E_wk = M. No contact factors and no
+    switching rows (their fields are empty)."""
+    nv, nu = model.nv, model.nu
+    nx = 2 * nv
+    lead = q.shape[:-1]
+    kw = dict(dtype=q.dtype, device=q.device)
+    empty = torch.zeros(lead + (0,), **kw)   # no forces, no contact mask
+
+    blocks = [c.stage(ctx, t, dt, q, v, a, empty, u, empty) for c in costs]
+    val, lb, Hb = _accumulate_blocks(blocks)
+    lcond_b = dict(lb)
+    # named blocks in the stage's own (x | w) order
+    sizes = [("q", nv), ("v", nv), ("u", nu), ("a", nv)]
+    g_all, Jz = {}, {}
+    barrier = torch.zeros(lead, **kw)
+    for comp in constraints:
+        g, Jblocks = comp.evaluate(ctx, q, v, a, empty, u, empty)
+        s_, d_ = slack[comp.name], dual[comp.name]
+        sigma, rhs = pdipm.condense_terms(g, s_, d_, options.barrier)
+        _add_outer_blocks(Hb, Jblocks, sigma)
+        for name, Jb in Jblocks.items():
+            contrib = _mv(Jb.mT, rhs)
+            lcond_b[name] = lcond_b[name] + contrib if name in lcond_b \
+                else contrib
+        barrier = barrier + pdipm.barrier_value(s_, options.barrier)
+        g_all[comp.name] = g
+        Jz[comp.name] = _assemble_rows(Jblocks, comp.dim, sizes, lead, kw)
+    lcond = _assemble_vec(lcond_b, sizes, lead, kw)
+    H = _assemble_mat(Hb, sizes, lead, kw)
+    quad = StageQuad(value=val, lx=lcond[..., :nx], lw=lcond[..., nx:],
+                     Qxx=H[..., :nx, :nx], Qxw=H[..., :nx, nx:],
+                     Qww=H[..., nx:, nx:])
+
+    # inverse dynamics and its analytic derivatives, the mass matrix, from
+    # one world-frame FK bundle
+    fkb = spatial.fk(model, q)
+    mo = spatial.motion(model, fkb, v, a)
+    tau, _, F = spatial.rnea(model, fkb, mo)
+    Dq, Dv = spatial.rnea_derivatives(model, fkb, mo, F)
+    M = spatial.mass_matrix(model, fkb)
+    e = tau - u
+    E_x = torch.cat([Dq, Dv], dim=-1)
+
+    Aq_q, Aq_v, rq_s, _, _ = transition_blocks(model, dt, q, v, a, q_next)
+    dtm = dt[..., None, None]
+    zeros = lambda r, c: torch.zeros(lead + (r, c), **kw)
+    I_v = torch.eye(nv, **kw).expand(lead + (nv, nv))
+    F_x = torch.cat([torch.cat([Aq_q, Aq_v], dim=-1),
+                     torch.cat([zeros(nv, nv), I_v], dim=-1)], dim=-2)
+    F_w = torch.cat([torch.cat([zeros(nv, nu), dtm * Aq_v], dim=-1),
+                     torch.cat([zeros(nv, nu), dtm * I_v], dim=-1)], dim=-2)
+    xres = torch.cat([rq_s, v + dt[..., None] * a - v_next], dim=-1)
+
+    named = {}
+    if named_blocks:
+        named = dict(
+            lnamed=_assemble_vec(lb, sizes, lead, kw),
+            lx_extra=torch.zeros(lead + (nx,), **kw),
+            E_named=torch.cat([E_x, -I_v, M], dim=-1),
+            C_named=zeros(0, nx + nu + nv),
+            F_named=torch.cat([F_x, F_w], dim=-1),
+            Gq=torch.zeros(nv, nv, **kw).expand(lead + (nv, nv)), Gv=I_v)
+    return StageLin(
+        quad=quad, cost=val, barrier=barrier, E_x=E_x, e=e,
+        T_x=E_x, T_k=M, t0=e,
+        fac_LM=zeros(0, 0), fac_LS=zeros(0, 0), fac_Jm=zeros(0, 0),
+        F_x=F_x, F_w=F_w, xres=xres,
+        Cx_raw=zeros(0, nx), Cw_raw=zeros(0, nu + nv),
+        h=empty, sw_mask=empty,
+        g=g_all, Jz=Jz, **named)
+
+
 def chain_to_x(Gq, Gv, X):
     """The transposed chain named (q, v) <- x applied to a named-space vector
     X (..., nn): [X_q + Gq^T X_v ; Gv^T X_v]. The chain matrix over x is
@@ -560,6 +643,36 @@ def evaluate_contact_stage(
     h = mask3_of(sw_contact, q.dtype) * (pos_sw - sw_pos).reshape(
         lead + (3 * nc,))
     return cost + barrier, viol + l1(h)
+
+
+def evaluate_unconstr_stage(
+        model: RobotModel, costs, constraints, options,
+        t, dt, q, v, a, u, q_next, v_next, slack, ctx=None):
+    """Value-only evaluation of fixed-base stages for line-search trials:
+    (cost + barrier, L1 violation), each of the leading shape."""
+    lead = q.shape[:-1]
+    kw = dict(dtype=q.dtype, device=q.device)
+    f = torch.zeros(lead + (0,), **kw)
+    cost = torch.zeros(lead, **kw)
+    for c in costs:
+        cost = cost + c.stage(ctx, t, dt, q, v, a, f, u, f).value
+    barrier = torch.zeros(lead, **kw)
+    viol = torch.zeros(lead, **kw)
+    l1 = lambda x: x.abs().sum(dim=-1)
+    for comp in constraints:
+        g, _ = comp.evaluate(ctx, q, v, a, f, u, f)
+        barrier = barrier + pdipm.barrier_value(slack[comp.name],
+                                                options.barrier)
+        # actual infeasibility only, as in the contact stage
+        viol = viol + torch.clamp(g, min=0.0).sum(dim=-1)
+    fkb = spatial.fk(model, q)
+    tau, _, _ = spatial.rnea(model, fkb, spatial.motion(model, fkb, v, a,
+                                                        derivatives=False))
+    dtc = dt[..., None]
+    qp = model_mod.integrate(model, q, dtc * (v + dtc * a))
+    viol = (viol + l1(tau - u) + l1(model_mod.difference(model, q_next, qp))
+            + l1(v + dtc * a - v_next))
+    return cost + barrier, viol
 
 
 def evaluate_terminal(model, costs, constraints, options, t, q, v, slack,

@@ -1,10 +1,10 @@
 """Scenario batching.
 
 Twin of ``idocp_tpu/parallel/batch.py`` (``batch_solution`` and
-``BatchedSolver``; no device mesh and no per-scenario schedules yet). The
-scale-out axis is scenario batching: many independent MPC problems (initial
-states, disturbances) per card, one leading tensor axis. The port's solver is
-written batch-first, so this is a thin wrapper.
+``BatchedSolver`` over either solver; no device mesh and no per-scenario
+schedules yet). The scale-out axis is scenario batching: many independent MPC
+problems (initial states, disturbances) per card, one leading tensor axis.
+The port's solvers are written batch-first, so this is a thin wrapper.
 """
 from __future__ import annotations
 
@@ -15,32 +15,33 @@ def batch_solution(sol, batch: int):
 
 
 class BatchedSolver:
-    """Batched wrapper around an OCPSolver. The HorizonSchedule is shared by
-    the whole batch."""
+    """Batched wrapper around an ``OCPSolver`` or an ``UnconstrOCPSolver``.
+    ``*extra`` is what the solver takes after the measured state: the
+    ``OCPSolver``'s HorizonSchedule (shared by the whole batch), nothing for
+    the ``UnconstrOCPSolver``."""
 
     def __init__(self, solver):
         self.solver = solver
 
-    def update(self, sol_batched, t, q_batch, v_batch, schedule):
+    def update(self, sol_batched, t, q_batch, v_batch, *extra):
         """One Newton iteration on every scenario of a batched Solution."""
         return self.solver.update_batched(sol_batched, t, q_batch, v_batch,
-                                          schedule)
+                                          *extra)
 
-    def kkt_error(self, sol_batched, t, q_batch, v_batch, schedule):
+    def kkt_error(self, sol_batched, t, q_batch, v_batch, *extra):
         """KKT residual norm per scenario, (B,)."""
         return self.solver.kkt_error_batched(sol_batched, t, q_batch, v_batch,
-                                             schedule)
+                                             *extra)
 
-    def mean_kkt_error(self, sol_batched, t, q_batch, v_batch, schedule):
+    def mean_kkt_error(self, sol_batched, t, q_batch, v_batch, *extra):
         """Cross-scenario metric reduction."""
-        return self.kkt_error(sol_batched, t, q_batch, v_batch,
-                              schedule).mean()
+        return self.kkt_error(sol_batched, t, q_batch, v_batch, *extra).mean()
 
-    def solve(self, sol_batched, t, q_batch, v_batch, schedule, tol=None,
+    def solve(self, sol_batched, t, q_batch, v_batch, *extra, tol=None,
               max_iterations=None):
         """Batched solve-to-tolerance with per-scenario convergence, see
-        ``OCPSolver.solve_batched``. Returns (solution, iters (B,), kkt (B,),
-        converged (B,) bool)."""
+        ``newton_loop.solve_masked``. Returns (solution, iters (B,), kkt
+        (B,), converged (B,) bool)."""
         return self.solver.solve_batched(sol_batched, t, q_batch, v_batch,
-                                         schedule, tol=tol,
+                                         *extra, tol=tol,
                                          max_iterations=max_iterations)

@@ -6,9 +6,11 @@ over the N stages; every per-stage operation is dense small-matrix algebra on
 tensors with a leading scenario axis (B, ...). Both dense factorizations of a
 step go through the CUDA kernel, one launch each: the control Hessian G with
 its Levenberg rescue ladder through ``ops.chol_rescue_tri_inv``, the Schur
-complement of the switching rows through ``ops.chol_tri_inv``. The ladder's
-plain version ``chol_rescue`` (defined in ``ops.chol`` beside the kernel's
-wrapper) is re-exported here, where the JAX twin has it.
+complement of the switching rows through ``ops.chol_tri_inv`` (only where
+the stages have switching rows: a fixed-base horizon has none, and its steps
+launch the rescue kernel alone). The ladder's plain version ``chol_rescue``
+(defined in ``ops.chol`` beside the kernel's wrapper) is re-exported here,
+where the JAX twin has it.
 
 Value convention: V_k(dx) = 1/2 dx' P_k dx + s_k' dx + const, costate
 lambda_k = P_k dx_k + s_k.
@@ -40,7 +42,8 @@ class LQRPolicy(TensorStruct):
 
 def backward_step(P, s, cs: CondensedStage, sw_mask, reg=0.0):
     """One backward Riccati step on (B, ...) tensors. sw_mask: (B, ns) 1/0
-    rows of the switching constraint active at this stage."""
+    rows of the switching constraint active at this stage; with ns = 0 (the
+    stages' own shape, ``cs.Cu``) the step has no switching part at all."""
     A, B, r = cs.A, cs.B, cs.xres
     nx = A.shape[-1]
     # fused P @ [A | B | r] and A' @ [PA | PB | Pr + s]
@@ -56,6 +59,15 @@ def backward_step(P, s, cs: CondensedStage, sw_mask, reg=0.0):
     # every G-solve becomes two matrix products
     Li = chol_rescue_tri_inv((0.5 * (G + G.mT)).contiguous(), reg)
     Gsolve = lambda X: Li.mT @ (Li @ X)
+
+    if cs.Cu.shape[-2] == 0:
+        DU = -Gsolve(torch.cat([Hxu.mT, gu[..., :, None]], dim=-1))
+        K, kff = DU[..., :-1], DU[..., -1]
+        P_new = F + Hxu @ K
+        s_new = cs.lx + ATP[..., -1] + (Hxu @ kff[..., :, None])[..., 0]
+        P_new = 0.5 * (P_new + P_new.mT)
+        # no xi: the empty (B, 0, nx) / (B, 0) rows stand for its policy
+        return P_new, s_new, LQRPolicy(K=K, k=kff, Kxi=cs.Cx, kxi=cs.h)
 
     # masked switching rows: [[G, Cu'], [Cu, -Sigma]] with Sigma = diag(1-m)
     # solved by Schur complement on the SPD S = Cu G^-1 Cu' + Sigma

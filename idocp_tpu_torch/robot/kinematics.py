@@ -1,10 +1,13 @@
-"""Forward kinematics: world poses of all bodies and frame positions.
+"""Forward kinematics: world poses of all bodies, frame placements and the
+center of mass.
 
-Twin of ``idocp_tpu/robot/kinematics.py`` (``body_poses_stacked`` and
-``frame_positions`` only; the twin's autodiff-based velocity / Jacobian
-helpers are replaced by the closed forms of ``robot/spatial.py``). The tree
-recursion runs over tree depth: each level handles all its bodies as one
-gather / compose / concatenate step. ``q`` may carry leading dimensions.
+Twin of ``idocp_tpu/robot/kinematics.py`` (``body_poses_stacked``,
+``frame_pose``, ``frame_position``, ``frame_positions``, ``com``; the twin's
+autodiff-based velocity / Jacobian helpers are replaced by the closed forms
+of ``robot/spatial.py``, ``frame_jacobian`` and ``com_jacobian`` among
+them). The tree recursion runs over tree depth: each level handles all its
+bodies as one gather / compose / concatenate step. ``q`` may carry leading
+dimensions.
 """
 from __future__ import annotations
 
@@ -115,3 +118,27 @@ def frame_positions(model: RobotModel, q, frame_ids):
     fp = torch.index_select(model.frame_pos, 0, model.index(("frames", fids), fids))
     return (torch.index_select(pw, -2, fb)
             + lie.mv3(torch.index_select(Rw, -3, fb), fp))
+
+
+def frame_pose_of(model: RobotModel, Rw, pw, frame_id: int):
+    """World rotation (..., 3, 3) and position (..., 3) of a frame, from the
+    body poses of ``body_poses_stacked``."""
+    b = model.frame_body[frame_id]
+    Rb, pb = Rw[..., b, :, :], pw[..., b, :]
+    return (lie.mm3(Rb, model.frame_rot[frame_id]),
+            pb + lie.mv3(Rb, model.frame_pos[frame_id]))
+
+
+def frame_pose(model: RobotModel, q, frame_id: int):
+    return frame_pose_of(model, *body_poses_stacked(model, q), frame_id)
+
+
+def frame_position(model: RobotModel, q, frame_id: int):
+    return frame_pose(model, q, frame_id)[1]
+
+
+def com(model: RobotModel, q):
+    """World center of mass (..., 3)."""
+    Rw, pw = body_poses_stacked(model, q)
+    ci = pw + lie.mv3(Rw, model.com)
+    return (model.mass[:, None] * ci).sum(dim=-2) / model.mass.sum()

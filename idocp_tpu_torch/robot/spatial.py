@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from . import lie
-from .kinematics import body_poses_stacked
+from .kinematics import body_poses_stacked, frame_pose_of
 from .model import FREE, REVOLUTE, RobotModel
 
 cross = lie.cross
@@ -227,6 +227,29 @@ def point_jacobians(model: RobotModel, f: FK, p_f, fb):
     # column j at point p: S_lin_j + S_ang_j x p
     cols = S_lin + cross(S_ang, p_f[..., :, None, :])      # (..., nc, nv, 3)
     return (cols * mask[:, :, None]).mT                    # (..., nc, 3, nv)
+
+
+def frame_jacobian(model: RobotModel, f: FK, frame_id: int):
+    """A frame's pose (R (..., 3, 3), p (..., 3)) and its Jacobian
+    (..., 6, nv) in its own frame, angular first: X(q (+) e) = X(q) Exp6(J e)
+    to first order. Rows 3-5 rotated back to the world give the linear
+    Jacobian of the frame's origin (``point_jacobians``)."""
+    R, p = frame_pose_of(model, f.Rw, f.pw, frame_id)
+    b = model.frame_body[frame_id]
+    mask = model.const(("anc_rows", (b,)), topology(model).anc_bd_np[[b]])[0]
+    S_ang = f.S[..., :3] * mask[:, None]                   # (..., nv, 3)
+    lin = (f.S[..., 3:] + cross(f.S[..., :3], p[..., None, :])) * mask[:, None]
+    return R, p, torch.cat([R.mT @ S_ang.mT, R.mT @ lin.mT], dim=-2)
+
+
+def com_jacobian(model: RobotModel, f: FK):
+    """The center of mass (..., 3) and its Jacobian (..., 3, nv): the point
+    Jacobians of the body coms weighted by mass."""
+    fb = tuple(range(model.nbodies))
+    Jc = point_jacobians(model, f, f.c_w, fb)              # (..., nb, 3, nv)
+    M = model.mass.sum()
+    return ((model.mass[:, None] * f.c_w).sum(dim=-2) / M,
+            (model.mass[:, None, None] * Jc).sum(dim=-3) / M)
 
 
 def mass_matrix(model: RobotModel, f: FK):

@@ -2,14 +2,17 @@
 -> step, on a batch of scenarios.
 
 Twin of ``idocp_tpu/solver/core.py`` (``make_direction_fn``,
-``make_update_fn``, ``kkt_error_from_lin``, ``make_kkt_error_fn``; serial
-Riccati only). The twin is written for one scenario and batched by vmap; here
-every tensor carries the scenario axis B first, every per-scenario scalar of
-the twin (step sizes, the trust cap, the finiteness flag, costs, norms, the
-accepted trial) is a (B,) tensor reduced over the non-batch axes only, and
-nothing inside ``update`` reads a value back to the host. The optional filter
-line search evaluates its whole (B, K) trial grid in one batched pass
-(line_search.py).
+``make_update_fn``, ``kkt_error_from_lin``, ``make_kkt_error_fn``, for both
+stage families; serial Riccati only). The twin is written for one scenario
+and batched by vmap; here every tensor carries the scenario axis B first,
+every per-scenario scalar of the twin (step sizes, the trust cap, the
+finiteness flag, costs, norms, the accepted trial) is a (B,) tensor reduced
+over the non-batch axes only, and nothing inside ``update`` reads a value
+back to the host. The optional filter line search evaluates its whole (B, K)
+trial grid in one batched pass (line_search.py). The closures take whatever
+the solver's stage functions take after the measured state (the contact
+family's schedule, nothing for the fixed-base family) as trailing arguments,
+as the twin's ``*extra``.
 """
 from __future__ import annotations
 
@@ -56,13 +59,14 @@ def _mv(A, x):
 
 
 def _sum_b(x):
-    """Per-scenario sum over every non-batch axis: (B, ...) -> (B,)."""
-    return x.reshape(x.shape[0], -1).sum(dim=1)
+    """Per-scenario sum over every non-batch axis: (B, ...) -> (B,); 0 for an
+    empty field."""
+    return x.flatten(1).sum(dim=1)
 
 
 def _all_finite_b(x):
     """Per-scenario finiteness flag: (B, ...) -> (B,) bool."""
-    return torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
+    return torch.isfinite(x).flatten(1).all(dim=1)
 
 
 def _bcast(flag, like):
@@ -75,15 +79,18 @@ def _ftb(x, dx, tau):
     neg = dx < 0
     ratio = torch.where(neg, -tau * x / torch.where(neg, dx, -torch.ones_like(dx)),
                         torch.ones_like(x))
-    return ratio.reshape(ratio.shape[0], -1).amin(dim=1)
+    return ratio.flatten(1).amin(dim=1)
 
 
-def _expand_dual_all(model, lin, dx, du, dwe, lam_new, dxi):
+def _expand_dual_all(model, w_split, lin, dx, du, dwe, lam_new, dxi):
     """Recover the eliminated-equality multipliers nu_e = (beta, mu): solve
-    E_we^T nu = -grad with the stage's Cholesky/Schur factors."""
+    E_we^T nu = -grad. Contact stages solve with their Cholesky/Schur
+    factors; fixed-base stages have E_we = -I, so nu_e = beta = grad."""
     nv = model.nv
     rhs = dual_rhs(lin.quad, lin.F_w, dx[:, :-1], du, dwe, lam_new[:, 1:],
                    lin.Cw_raw, dxi)
+    if w_split == nv:
+        return rhs
     nu_b, nu_m = contact_solve_T(
         lin.fac_LM, lin.fac_LS, lin.fac_Jm,
         -rhs[..., :nv, None], -rhs[..., nv:, None])
@@ -95,16 +102,16 @@ def make_direction_fn(model, options, linearize_all: Callable,
     """Newton-direction computation shared by the update and the LQR-policy
     getter: linearize -> condense -> Riccati -> rollout -> expand-primal.
 
-    linearize_all(sol, t, q_meas, v_meas, sched, named_blocks) -> StageLin
+    linearize_all(sol, t, q_meas, v_meas, *extra, named_blocks) -> StageLin
         with leading axes (B, N);
     terminal_fn(sol, t) -> (val, l_cond, H, barrier, g_term, Jz_term, l_raw)
         with leading axis B.
     """
 
     @torch.no_grad()
-    def direction(sol: Solution, t, q_meas, v_meas, sched,
+    def direction(sol: Solution, t, q_meas, v_meas, *extra,
                   named_blocks=False):
-        lin = linearize_all(sol, t, q_meas, v_meas, sched,
+        lin = linearize_all(sol, t, q_meas, v_meas, *extra,
                             named_blocks=named_blocks)
         term = terminal_fn(sol, t)
         term_l, term_H = term[1], term[2]
@@ -125,13 +132,16 @@ def make_direction_fn(model, options, linearize_all: Callable,
     return direction
 
 
-def make_update_fn(model, options, direction: Callable, N: int,
+def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
                    evaluate_all: Callable):
     """Build the one-iteration update function on batched solutions.
 
     direction: the closure of ``make_direction_fn`` built with the same
         options;
-    evaluate_all(sol, t, q_meas, v_meas, sched) -> (cost+barrier, L1
+    w_split: width of the eliminated block w_e; nv for the fixed-base family
+        (w = (u, a), eliminated u), nv + nf for the contact family
+        (w = (a, f, u), eliminated (a, f));
+    evaluate_all(sol, t, q_meas, v_meas, *extra) -> (cost+barrier, L1
         violation), each (L,), reading only the primal and slack fields of a
         solution with leading axis L; the merit pair of the filter line
         search, called only when options.use_line_search.
@@ -140,15 +150,16 @@ def make_update_fn(model, options, direction: Callable, N: int,
     tau = options.fraction_to_boundary
 
     @torch.no_grad()
-    def update(sol: Solution, t, q_meas, v_meas, sched):
+    def update(sol: Solution, t, q_meas, v_meas, *extra):
         lin, term, cs, _, P, s, dx, du, dxi, dwe, _ = direction(
-            sol, t, q_meas, v_meas, sched,
+            sol, t, q_meas, v_meas, *extra,
             named_blocks=options.compute_kkt_error)
         term_val, _, _, term_barrier, g_term, Jz_term, _ = term
         B = dx.shape[0]
         dx0 = dx[:, 0]                     # the rollout starts at (dq0, dv0)
         lam_new = _mv(P, dx) + s                           # (B, N+1, 2nv)
-        nu_e = _expand_dual_all(model, lin, dx, du, dwe, lam_new, dxi)
+        nu_e = _expand_dual_all(model, w_split, lin, dx, du, dwe, lam_new,
+                                dxi)
 
         dz = torch.cat([dx[:, :-1], dwe, du], dim=-1)      # (B, N, nx+nw)
         # per-component slack/dual expansion + fraction-to-boundary
@@ -194,8 +205,12 @@ def make_update_fn(model, options, direction: Callable, N: int,
         nu_e = keep(nu_e, torch.cat([sol.beta, sol.mu], dim=-1))
         dxi = keep(dxi, sol.xi)
 
-        # direction components in primal space: w = (a, f, u)
-        a_dir, f_dir, u_dir = dwe[..., :nv], dwe[..., nv:], du
+        # direction components in primal space (nu_e above is (beta, mu), or
+        # beta alone for the fixed base, whose mu and f are empty)
+        if w_split == nv:      # w = (u, a): dwe is the torque step
+            u_dir, a_dir, f_dir = dwe, du, dwe[..., nv:]
+        else:                  # w = (a, f, u)
+            a_dir, f_dir, u_dir = dwe[..., :nv], dwe[..., nv:], du
 
         eps = torch.finfo(sol.v.dtype).eps
 
@@ -259,7 +274,7 @@ def make_update_fn(model, options, direction: Callable, N: int,
                     x[:, None].expand((B, K) + x.shape[1:]))
                 costs, viols = evaluate_all(
                     dataclasses.replace(sol, **trial), t, per_trial(q_meas),
-                    per_trial(v_meas), sched)
+                    per_trial(v_meas), *extra)
                 return costs.reshape(B, K), viols.reshape(B, K)
 
             ap, ls_accepted, ls_by_cost, ls_trial = ls_mod.search(
@@ -340,7 +355,8 @@ def kkt_error_from_lin(model, options, N, lin, term, sol: Solution,
 
     # stage stationarity: the named-space gradient chained to (x | w); the
     # chain over x is [[I, 0], [Gq, Gv], [0, 0]], the one over w selects the
-    # named (a, f, u) entries
+    # named entries after (q, v), which each stage family keeps in its own w
+    # order
     grad_named = (lin.lnamed + _mv(lin.E_named.mT, numul)
                   + _mv(lin.C_named.mT, sol.xi)
                   + _mv(lin.F_named.mT, lam[:, 1:]))
@@ -379,8 +395,8 @@ def make_kkt_error_fn(model, options, linearize_all, terminal_fn, N):
     """Standalone KKT-error function (linearizes at the current iterate)."""
 
     @torch.no_grad()
-    def kkt_error(sol: Solution, t, q_meas, v_meas, sched):
-        lin = linearize_all(sol, t, q_meas, v_meas, sched, named_blocks=True)
+    def kkt_error(sol: Solution, t, q_meas, v_meas, *extra):
+        lin = linearize_all(sol, t, q_meas, v_meas, *extra, named_blocks=True)
         return kkt_error_from_lin(model, options, N, lin, terminal_fn(sol, t),
                                   sol, q_meas, v_meas)
 

@@ -33,6 +33,7 @@ from ..robot.contact import ContactModel
 from ..robot import model as model_mod
 from ..robot.model import resolve_device
 from .core import make_direction_fn, make_kkt_error_fn, make_update_fn
+from .newton_loop import newton_stage, reset_filter, solve_masked
 from .options import SolverOptions
 
 
@@ -41,33 +42,16 @@ def _flat(x, n=2):
     return x.reshape((-1,) + x.shape[n:])
 
 
-class HostFlag:
-    """One boolean of a device tensor made readable on the host without
-    draining the launch queue: the copy into pinned memory is queued behind
-    the work that produces the flag, and ``read`` waits for that copy only,
-    so whatever was queued after it keeps the device busy. On a CPU tensor it
-    is a plain read."""
+class _SolverCommon:
+    """What both solver families share around their batched functions: the
+    solver's own single-scenario solution as a batch of one, the terminal
+    time, and the solution accessors."""
 
-    def __init__(self, flag: torch.Tensor):
-        if flag.is_cuda:
-            self._host = torch.empty((), dtype=torch.bool, pin_memory=True)
-            self._host.copy_(flag, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host, self._event = flag, None
+    #: the solution fields ``set_solution_component`` may overwrite
+    _components = ("q", "v", "a", "u")
 
-    def read(self) -> bool:
-        if self._event is not None:
-            self._event.synchronize()
-        return bool(self._host)
-
-
-class OCPSolver:
-    def __init__(self, model, contact_model: ContactModel, cost, constraints,
-                 T, N, options: SolverOptions = SolverOptions(),
-                 dtype=torch.float64, device="cuda", impulse_cost=None,
-                 max_impulse_stages: int = 4):
+    def _bind(self, model, dtype, device):
+        """Device, dtype and model, which must already be on both."""
         self.device = resolve_device(device)
         self.dtype = dtype
         if model.device != self.device or model.dtype != dtype:
@@ -76,6 +60,48 @@ class OCPSolver:
                 f"for {self.device} in {dtype}: build the model with the "
                 "solver's device and dtype")
         self.model = model
+
+    def _t_final(self, t):
+        """The terminal time as a 0-d tensor: a reference given as a callable
+        of t gets a tensor on every stage."""
+        return torch.as_tensor(t + self.T, dtype=self.dtype,
+                               device=self.device)
+
+    def _batched(self, q, v):
+        """The solver's own solution and a measured state with B = 1."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (self.solution.map(lambda x: x[None]),
+                torch.as_tensor(q, **kw)[None], torch.as_tensor(v, **kw)[None])
+
+    def get_solution(self, name: str):
+        return getattr(self.solution, name)
+
+    def set_solution_component(self, name: str, value):
+        """Overwrite one named solution component (``_components``) across
+        the horizon. ``value`` may be a single stage row (broadcast over
+        stages) or a full horizon-stacked array."""
+        if name not in self._components:
+            raise KeyError(f"unknown solution component {name!r}")
+        cur = getattr(self.solution, name)
+        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        if value.dim() == cur.dim() - 1:
+            value = value[None].expand(cur.shape)
+        if value.shape != cur.shape:
+            raise ValueError(
+                f"{name}: expected shape {tuple(cur.shape)}, "
+                f"got {tuple(value.shape)}")
+        self.solution = dataclasses.replace(self.solution,
+                                            **{name: value.clone()})
+
+
+class OCPSolver(_SolverCommon):
+    _components = ("q", "v", "a", "f", "u")
+
+    def __init__(self, model, contact_model: ContactModel, cost, constraints,
+                 T, N, options: SolverOptions = SolverOptions(),
+                 dtype=torch.float64, device="cuda", impulse_cost=None,
+                 max_impulse_stages: int = 4):
+        self._bind(model, dtype, device)
         self.cm = contact_model
         self.cost = tuple(cost)
         # impulse-Lambda components (ImpulseFrictionCone etc.) chain through
@@ -113,9 +139,10 @@ class OCPSolver:
             term = lambda sol, t: self.terminal_fn(sol, t, options=options)
             ev = lambda *a: self.evaluate_all(*a, options=options)
             direction = make_direction_fn(self.model, options, lin, term)
+            w_split = self.model.nv + self.cm.max_dimf     # w_e = (a, f)
             self._fn_cache[options] = {
                 "update": make_update_fn(self.model, options, direction,
-                                         self.N, ev),
+                                         self.N, w_split, ev),
                 "kkt": make_kkt_error_fn(self.model, options, lin, term,
                                          self.N),
                 "direction": direction,
@@ -207,7 +234,7 @@ class OCPSolver:
         N_ = self.N
         return stage_mod.terminal_quad(
             self.model, self.cost, self.constraints, options or self.options,
-            t + self.T, sol.q[:, N_], sol.v[:, N_],
+            self._t_final(t), sol.q[:, N_], sol.v[:, N_],
             {k: v[:, N_] for k, v in sol.slack.items()},
             {k: v[:, N_] for k, v in sol.dual.items()}, self._ctx)
 
@@ -227,7 +254,7 @@ class OCPSolver:
             imp_values=tuple(_flat(x) for x in iv))
         c_t, v_t = stage_mod.evaluate_terminal(
             self.model, self.cost, self.constraints, options,
-            t + self.T, sol.q[:, N_], sol.v[:, N_],
+            self._t_final(t), sol.q[:, N_], sol.v[:, N_],
             {k: v[:, N_] for k, v in sol.slack.items()}, self._ctx)
         dq0 = model_mod.difference(self.model, sol.q[:, 0], q_meas)
         viol = (v_st.reshape(L, N_).sum(dim=1) + v_t + dq0.abs().sum(dim=1)
@@ -332,12 +359,6 @@ class OCPSolver:
                 "touchdown count")
 
     # ------------------------------------------------------------------
-    def _batched(self, q, v):
-        """The solver's own solution and a measured state with B = 1."""
-        kw = dict(dtype=self.dtype, device=self.device)
-        return (self.solution.map(lambda x: x[None]),
-                torch.as_tensor(q, **kw)[None], torch.as_tensor(v, **kw)[None])
-
     def update_batched(self, sol_b: Solution, t, q_b, v_b,
                        schedule: HorizonSchedule):
         """One Newton iteration on a batch of scenarios (leading axis B)
@@ -387,93 +408,39 @@ class OCPSolver:
             else self.options.barrier_schedule
         history = []
         self.host_reads = 0
-
-        def newton_stage(sol, update, stage_tol):
-            met = None                 # flag of the iteration before this one
-            for _ in range(it_cap):
-                nxt, stats = update(sol, t, q_b, v_b, schedule)
-                flag = HostFlag(stats.kkt_error[0] < stage_tol)
-                if met is not None:
-                    self.host_reads += 1
-                    if met.read():
-                        break          # this iteration was one too many
-                history.append(stats.map(lambda x: x[0]))
-                sol, met = nxt, flag
-            return sol
-
+        args = (t, q_b, v_b, schedule)
         for mu in mus:
             fns = self._fns_for(
                 dataclasses.replace(self.options, barrier=float(mu)))
-            sol_b = newton_stage(_reset_filter(sol_b), fns["update"],
-                                 max(tol, 10.0 * float(mu)))
+            sol_b, reads = newton_stage(fns["update"], reset_filter(sol_b),
+                                        args, it_cap, max(tol, 10.0 * float(mu)),
+                                        history)
+            self.host_reads += reads
         if mus:
-            sol_b = _reset_filter(sol_b)
-        sol_b = newton_stage(sol_b, self._update, tol)
+            sol_b = reset_filter(sol_b)
+        sol_b, reads = newton_stage(self._update, sol_b, args, it_cap, tol,
+                                    history)
+        self.host_reads += reads
         self.solution = sol_b.map(lambda x: x[0])
         return (history[-1] if history else None), history
 
-    @torch.no_grad()
     def solve_batched(self, sol_b: Solution, t, q_b, v_b,
                       schedule: HorizonSchedule, tol=None,
                       max_iterations=None):
         """Batched solve-to-tolerance: one masked Newton loop with
-        PER-SCENARIO convergence. Converged scenarios are frozen (their
-        iterate stops changing) while the rest keep stepping; the loop ends
-        when every scenario converged or the cap is hit.
+        PER-SCENARIO convergence (``newton_loop.solve_masked``). Converged
+        scenarios are frozen while the rest keep stepping; the loop ends when
+        every scenario converged or the cap is hit.
 
         Requires options.compute_kkt_error=True (otherwise stats.kkt_error
         is the direction-norm proxy and ``tol`` means that instead). Returns
-        (solution, iters (B,) int32, kkt (B,), converged (B,) bool).
-
-        The host reads one flag per iteration (all scenarios done) one
-        iteration late: an iteration run after every scenario converged
-        changes nothing, because the merge keeps every frozen iterate."""
+        (solution, iters (B,) int32, kkt (B,), converged (B,) bool)."""
         self.check_schedule(schedule)
-        tol = tol or self.options.kkt_tol
-        cap = max_iterations or self.options.max_iterations
-        B = sol_b.q.shape[0]
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
-        iters = torch.zeros(B, dtype=torch.int32, device=self.device)
-        kkt = torch.full((B,), float("inf"), dtype=self.dtype,
-                         device=self.device)
-        all_done = None
-        self.host_reads = 0
-        for _ in range(cap):
-            new_sol, stats = self._update(sol_b, t, q_b, v_b, schedule)
-            frozen = done
-            sol_b = _merge(frozen, sol_b, new_sol)
-            iters = iters + torch.logical_not(frozen).to(torch.int32)
-            # stats.kkt_error is the PRE-step residual of this iteration's
-            # own linearization, as in the single-scenario solve() loop
-            kkt = torch.where(frozen, kkt, stats.kkt_error)
-            done = frozen | (kkt <= tol)
-            flag = HostFlag(done.all())
-            if all_done is not None:
-                self.host_reads += 1
-                if all_done.read():
-                    break
-            all_done = flag
-        return sol_b, iters, kkt, done
-
-    def get_solution(self, name: str):
-        return getattr(self.solution, name)
-
-    def set_solution_component(self, name: str, value):
-        """Overwrite one named solution component across the horizon.
-        ``value`` may be a single stage row (broadcast over stages) or a full
-        horizon-stacked array."""
-        if name not in ("q", "v", "a", "f", "u"):
-            raise KeyError(f"unknown solution component {name!r}")
-        cur = getattr(self.solution, name)
-        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
-        if value.dim() == cur.dim() - 1:
-            value = value[None].expand(cur.shape)
-        if value.shape != cur.shape:
-            raise ValueError(
-                f"{name}: expected shape {tuple(cur.shape)}, "
-                f"got {tuple(value.shape)}")
-        self.solution = dataclasses.replace(self.solution,
-                                            **{name: value.clone()})
+        *out, self.host_reads = solve_masked(
+            self._update, sol_b, (t, q_b, v_b, schedule),
+            tol or self.options.kkt_tol,
+            max_iterations or self.options.max_iterations)
+        return tuple(out)
 
     def get_lqr_policy(self, t, q, v, schedule: HorizonSchedule):
         """Per-stage LQR feedback policies du = K dx + k (and switching
@@ -485,26 +452,3 @@ class OCPSolver:
         return self._direction(sol_b, t, q_b, v_b, schedule)[-1].map(
             lambda x: x[0])
 
-
-def _reset_filter(sol: Solution) -> Solution:
-    """The Fletcher-Leyffer filter memory is tied to the merit function; a mu
-    switch changes the barrier term, so remembered (cost, violation) pairs
-    from the previous mu would wrongly dominate trials: clear them at every
-    stage transition."""
-    if not sol.filter_cost.shape[-1]:
-        return sol
-    return dataclasses.replace(
-        sol, filter_cost=torch.full_like(sol.filter_cost, float("inf")),
-        filter_viol=torch.full_like(sol.filter_viol, float("inf")),
-        filter_ptr=torch.zeros_like(sol.filter_ptr))
-
-
-def _merge(frozen, old: Solution, new: Solution) -> Solution:
-    """Field by field: the old iterate where ``frozen`` (B,), else the new."""
-    pick = lambda o, n: torch.where(
-        frozen.reshape((-1,) + (1,) * (n.dim() - 1)), o, n)
-    both = lambda o, n: ({k: pick(o[k], n[k]) for k in n}
-                         if isinstance(n, dict) else pick(o, n))
-    return dataclasses.replace(new, **{
-        f.name: both(getattr(old, f.name), getattr(new, f.name))
-        for f in dataclasses.fields(new)})

@@ -39,7 +39,7 @@ for mod in pkgutil.walk_packages(idocp_tpu_torch.__path__, "idocp_tpu_torch."):
     names.append(mod.name)
 
 from idocp_tpu_torch.ops import _build
-from idocp_tpu_torch.models import anymal
+from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.hybrid.schedule import static_schedule
 from idocp_tpu_torch import convert
 
@@ -51,6 +51,7 @@ def raises(fn):
     return False
 
 model = anymal.make_model_urdf(dtype=torch.float64, device="cpu")
+arm = iiwa14.make_model(dtype=torch.float64, device="cpu")
 feet = [[0.0, 0.0, 0.0]] * 4
 print(json.dumps({
     "modules": names,
@@ -68,6 +69,10 @@ print(json.dumps({
             [], [], T=0.5, N=2)),
         "model_from_numpy": raises(lambda: convert.model_from_numpy(
             convert.model_to_numpy(model))),
+        "iiwa14.make_model": raises(lambda: iiwa14.make_model()),
+        "iiwa14.make_model_urdf": raises(lambda: iiwa14.make_model_urdf()),
+        "UnconstrOCPSolver": raises(lambda: idocp_tpu_torch.UnconstrOCPSolver(
+            arm, [], idocp_tpu_torch.default_joint_limits(arm), T=1.0, N=2)),
     },
 }))
 """
@@ -86,12 +91,12 @@ def test_every_module_imports_without_jax(probe):
     expected = {"idocp_tpu_torch." + m for m in (
         "convert", "ops.chol", "ops._build", "robot.lie", "robot.model",
         "robot.urdf", "robot.kinematics", "robot.spatial", "robot.contact",
-        "models.anymal", "cost.base", "cost.components", "constraints.pdipm",
-        "constraints.components", "hybrid.schedule", "ocp.data",
-        "ocp.state_equation", "ocp.stage", "ocp.condensing",
+        "models.anymal", "models.iiwa14", "cost.base", "cost.components",
+        "constraints.pdipm", "constraints.components", "hybrid.schedule",
+        "ocp.data", "ocp.state_equation", "ocp.stage", "ocp.condensing",
         "riccati.recursion", "solver.options", "solver.core",
-        "solver.line_search",
-        "solver.ocp_solver", "solver.mpc", "parallel.batch")}
+        "solver.line_search", "solver.newton_loop", "solver.ocp_solver",
+        "solver.unconstr_ocp_solver", "solver.mpc", "parallel.batch")}
     assert expected <= set(probe["modules"])
 
 
@@ -126,4 +131,10 @@ def test_sources_name_no_jax_import():
 def test_port_ships_its_own_urdf():
     ours = ROOT / "idocp_tpu_torch" / "models" / "assets" / "anymal.urdf"
     theirs = ROOT / "idocp_tpu" / "models" / "assets" / "anymal.urdf"
+    assert ours.read_bytes() == theirs.read_bytes()
+
+
+def test_port_ships_its_own_iiwa14_urdf():
+    ours = ROOT / "idocp_tpu_torch" / "models" / "assets" / "iiwa14.urdf"
+    theirs = ROOT / "idocp_tpu" / "models" / "assets" / "iiwa14.urdf"
     assert ours.read_bytes() == theirs.read_bytes()
