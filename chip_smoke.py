@@ -11,7 +11,12 @@ fixed-base iiwa14 (``UnconstrOCPSolver`` -> ``BatchedSolver``, N=50, the JAX
 package's default options) without and with joint limits: the update (B=512,
 f32), ``BatchedSolver.solve`` (B=64, f64) and the accuracy against a
 converged f64 run. Both workloads again with the task-space, CoM and
-contact-force costs. It builds the CUDA kernel from the sources in this
+contact-force costs. The MPC drivers: ``BatchedMPC`` with a gait phase per
+scenario at B=512 (equal phases against the shared schedule; random phases
+with the line search) and at B=4096 (the host's schedule and the update timed
+apart), ANYmal standing at B=512, and the closed loop of ``MPC.step`` through
+the pinned-contact simulator in f64 and f32 with the LQR policy against a
+zero-order hold. It builds the CUDA kernel from the sources in this
 checkout, holds both of its entry points (``chol_tri_inv``,
 ``chol_rescue_tri_inv``) against their plain PyTorch versions on the card,
 shows that every path went through them (launch counts, asserted per
@@ -33,6 +38,9 @@ import torch
 
 import idocp_tpu_torch as it
 from idocp_tpu_torch import ops
+from idocp_tpu_torch.hybrid import native
+from idocp_tpu_torch.hybrid.schedule import TENSOR_FIELDS as SCHEDULE_FIELDS
+from idocp_tpu_torch.hybrid.schedule import schedule_from_arrays
 from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.ocp.condensing import condense
 from idocp_tpu_torch.ops import _build
@@ -61,10 +69,34 @@ SOLVE_TOLS = (1e-6, 1e-4)
 IIWA_BATCH, IIWA_N, IIWA_T, IIWA_T0 = 512, 50, 1.0, 0.0
 IIWA_ACC_UPDATES, IIWA_REF_UPDATES, U0_REF_TOL = 15, 25, 1e-4
 COST_UPDATES = 5
+# The MPC drivers (BASELINE #5 of the JAX package): BatchedMPC over the trot
+# with per-scenario gait phases, at the main path's width and at 4096
+# scenarios, steps 0.02 s apart. A per-scenario schedule launches what a
+# shared one launches: the same stages and impulse slots, gathered per
+# scenario.
+MPC_GAIT_START, MPC_DT, MPC_BIG, MPC_STEPS, MPC_ACC_STEPS = 0.1, 0.02, 4096, 10, 5
+MPC_EQUAL_STEPS, MPC_LS_STEPS, MPC_EQUAL_TOL = 3, 5, 1e-6
+# ANYmal standing (BASELINE #3, tools/accuracy_oracle.py::run_case): four
+# feet on the ground for the whole horizon, the JAX package's default options
+# (8-trial search, KKT residual); the launches are those of the trot with the
+# search: an empty impulse mask still gathers its 4 slots and every stage
+# keeps its 12 switching rows (masked off), so 26 + 20.
+STANDING_UPDATES, STANDING_REF_UPDATES = 15, 25
+# the closed loop of tools/accuracy_oracle.py::run_closed_loop: 12 periods of
+# 0.05 s, the shipping options, the first 4 against the CPU
+CL_PERIODS, CL_DT, CL_CPU_PERIODS, CL_GAIT_START, CL_TOL = 12, 0.05, 4, 0.25, 1e-6
+# the ZOH-against-LQR comparison of tests/test_mpc.py (N=8, T=0.4, the
+# default options): per update 4 stage / slot factorizations, 2 on the
+# search's grid and the 8 switching Schur complements; the policy's own
+# direction the same without the grid
+ZOH_N, ZOH_T, ZOH_PERIODS, ZOH_SUBSTEPS = 8, 0.4, 5, 4
 LAUNCHES_PER_UPDATE = {
     "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
     "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20},
-    "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N}}
+    "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N},
+    "zoh_update": {"chol_tri_inv": 6 + ZOH_N, "chol_rescue_tri_inv": ZOH_N},
+    "lqr_update_and_policy": {"chol_tri_inv": 10 + 2 * ZOH_N,
+                              "chol_rescue_tri_inv": 2 * ZOH_N}}
 WRAPPERS = {"chol_tri_inv": ops.chol_tri_inv,
             "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
@@ -78,9 +110,14 @@ SOLVE_SHAPES = [(SOLVE_BATCH * N_HORIZON, 18, 18),
                 (SOLVE_BATCH, 12, 12)]
 # the control Hessian of the fixed-base update and of its solve
 IIWA_SHAPES = [(IIWA_BATCH, 7, 7), (SOLVE_BATCH, 7, 7)]
+# the batched MPC at 4096 scenarios: stages, impulse slots (the (16384, ., .)
+# of the line search's grid above) and the Riccati step's Schur complement; a
+# batch the kernel had not run at before, past one wave of the card
+MPC_SHAPES = [(MPC_BIG * N_HORIZON, 18, 18), (MPC_BIG * N_HORIZON, 12, 12),
+              (MPC_BIG, 12, 12)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
 RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
-                 (77, 18, 18), (45, 7, 7)] + IIWA_SHAPES
+                 (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
 U0_TOL = 1e-3
 SOLVE_U0_TOL = 1e-6
@@ -360,7 +397,8 @@ def timing_row(fn, plain, shape, err, gen, floor_probe):
 def phase_kernels(gen):
     errs = {}
     for dtype in (torch.float32, torch.float64):
-        for shape in PATH_SHAPES + SOLVE_SHAPES + IIWA_SHAPES + AWKWARD_SHAPES:
+        for shape in (PATH_SHAPES + SOLVE_SHAPES + IIWA_SHAPES + MPC_SHAPES
+                      + AWKWARD_SHAPES):
             errs[(shape, dtype)] = check_against_plain(
                 spd(shape, dtype, gen), f"{shape} {dtype}")
         check_against_plain(schur_like(2048, dtype, gen), f"masked S {dtype}")
@@ -430,7 +468,7 @@ def phase_kernels(gen):
     probe = launch_floor_probe()
     rows = [timing_row(ops.chol_tri_inv, ops.chol_tri_inv_reference, shape,
                        errs[(shape, torch.float32)], gen, probe)
-            for shape in PATH_SHAPES]
+            for shape in PATH_SHAPES + MPC_SHAPES[:1]]
     # the control Hessian of one Riccati step: trot, then fixed base
     rescue_rows = [timing_row(
         ops.chol_rescue_tri_inv, ops.chol_rescue_tri_inv_reference,
@@ -465,7 +503,7 @@ def options_for(line_search_on, kkt_error_on):
 
 
 def build(batch, n_horizon, dtype, device, seed=0, options=None,
-          contact_costs=False):
+          contact_costs=False, t_horizon=T_HORIZON):
     """The benchmark workload through the port's API: warm-started whole-body
     trot MPC for ANYmal with one touchdown in the horizon, `batch` perturbed
     scenarios sharing one schedule. ``contact_costs`` adds a
@@ -493,7 +531,7 @@ def build(batch, n_horizon, dtype, device, seed=0, options=None,
     cons = [it.JointTorquesLowerLimit(m), it.JointTorquesUpperLimit(m),
             it.FrictionCone(m, nc=4, mu=0.7)]
     options = options or options_for(False, False)
-    solver = it.OCPSolver(m, cm, cost, cons, T=T_HORIZON, N=n_horizon,
+    solver = it.OCPSolver(m, cm, cost, cons, T=t_horizon, N=n_horizon,
                           options=options, dtype=dtype, device=device)
     sched = it.schedule_at(solver, it.TrotGait(t_start=0.1), feet, T0)
     solver.set_solution(q0, torch.zeros(m.nv, dtype=dtype, device=m.device),
@@ -1008,6 +1046,404 @@ def phase_costs(gpu):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the MPC drivers: BatchedMPC, ANYmal standing, the closed loop
+# ---------------------------------------------------------------------------
+
+def standing_feet(solver):
+    """The foot positions of the standing configuration (numpy)."""
+    m = solver.model
+    return kinematics.frame_positions(
+        m, anymal.standing_configuration(m), solver.cm.frame_ids).cpu().numpy()
+
+
+def build_mpc(batch, dtype, device, options, offsets):
+    """``build``'s workload driven by ``BatchedMPC`` over the trot with
+    per-scenario phase offsets. Returns (mpc, sol_b, q_b, v_b)."""
+    bs, sol_b, q_b, v_b, _ = build(batch, N_HORIZON, dtype, device,
+                                   options=options)
+    mpc = it.BatchedMPC(bs.solver, it.TrotGait(t_start=MPC_GAIT_START),
+                        standing_feet(bs.solver), offsets)
+    return mpc, sol_b, q_b, v_b
+
+
+def random_offsets(batch):
+    """Phase offsets drawn uniformly in [0, cycle_time), seed 0."""
+    cycle = it.TrotGait(t_start=MPC_GAIT_START).cycle_time()
+    return np.random.default_rng(0).uniform(0.0, cycle, batch)
+
+
+def schedule_stats(sched):
+    """Distinct impulse-slot patterns of a batched schedule and its counts."""
+    return (int(torch.unique(sched.imp_mask, dim=0).shape[0]),
+            *sched.host_counts())
+
+
+def timed_step(mpc, t, sol_b, q_b, v_b):
+    """``BatchedMPC.step`` in its two halves, each ending in a
+    synchronisation: the host's schedule (Python sequences, the native
+    discretizer, the copy to the card) and the update. Returns (solution,
+    u0, stats, (schedule ms, update ms, schedule_stats))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched = mpc.schedules_at(t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sol_b, stats = mpc.bs.update(sol_b, t, q_b, v_b, sched)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return sol_b, sol_b.u[:, 0], stats, (1e3 * (t1 - t0), 1e3 * (t2 - t1),
+                                         schedule_stats(sched))
+
+
+def phase_batched_mpc(gpu):
+    """BASELINE #5: (a) equal offsets against the shared schedule, (b) the
+    line search on per-scenario schedules, (c) 4096 scenarios with the host's
+    share of a step, and f32 against the port's f64 on the CPU. Returns the
+    launches of the counted runs."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    # (a) all offsets 0: the per-scenario gather against the shared path
+    mpc, sol_a, q_b, v_b = build_mpc(BATCH, torch.float32, "cuda",
+                                     options_for(False, False), [0.0] * BATCH)
+    sol_s = sol_a
+    reset_launches()
+    for k in range(MPC_EQUAL_STEPS):
+        t = MPC_DT * k
+        sol_a, _, _ = mpc.step(t, sol_a, q_b, v_b)
+        shared = it.schedule_at(mpc.solver, mpc.gait, mpc.feet0, t)
+        sol_s, _ = mpc.bs.update(sol_s, t, q_b, v_b, shared)
+    torch.cuda.synchronize()
+    launches = read_launches("plain", 2 * MPC_EQUAL_STEPS)
+    total = {k: total[k] + launches[k] for k in total}
+    equal_err = float((sol_a.u - sol_s.u).abs().max())
+    if not (equal_err <= MPC_EQUAL_TOL
+            and bool(torch.isfinite(sol_a.u).all())):
+        raise AssertionError(f"equal offsets: max|u - u_shared| = "
+                             f"{equal_err:.3e} above {MPC_EQUAL_TOL:g}")
+    emit(phase="batched_mpc", part="equal_offsets", gpu=gpu, batch=BATCH,
+         horizon=N_HORIZON, dtype="float32", steps=MPC_EQUAL_STEPS,
+         max_abs_u_err_vs_shared=equal_err, tolerance=MPC_EQUAL_TOL,
+         launches=launches)
+    del mpc, sol_a, sol_s
+
+    # (b) random offsets with the line search: the grid's per-trial schedule;
+    # each step's host schedule and update timed apart, as in (c)
+    mpc, sol_b, q_b, v_b = build_mpc(BATCH, torch.float32, "cuda",
+                                     options_for(True, True),
+                                     random_offsets(BATCH))
+    reset_launches()
+    history, sched_ms, update_ms = [], [], []
+    for k in range(MPC_LS_STEPS):
+        sol_b, u0, stats, times = timed_step(mpc, MPC_DT * k, sol_b, q_b, v_b)
+        history.append(stats)
+        sched_ms.append(times[0])
+        update_ms.append(times[1])
+    launches = read_launches("line_search", MPC_LS_STEPS)
+    total = {k: total[k] + launches[k] for k in total}
+    accepted = torch.stack([s.ls_accepted for s in history])
+    picked = torch.stack([s.ls_trial for s in history])[accepted]
+    if not bool(torch.isfinite(u0).all() and torch.isfinite(
+            history[-1].cost).all()):
+        raise AssertionError("line search: non-finite result")
+    steady = slice(1, None)            # the first step pays one-time costs
+    emit(phase="batched_mpc", part="line_search", gpu=gpu, batch=BATCH,
+         horizon=N_HORIZON, dtype="float32", steps=MPC_LS_STEPS,
+         ms_per_step=float(np.mean(sched_ms[steady]) + np.mean(
+             update_ms[steady])),
+         schedules_at_ms=float(np.mean(sched_ms[steady])),
+         update_ms=float(np.mean(update_ms[steady])),
+         schedules_at_share=float(np.sum(sched_ms[steady]) / (
+             np.sum(sched_ms[steady]) + np.sum(update_ms[steady]))),
+         schedule_patterns_and_counts=schedule_stats(mpc.schedules_at(0.0)),
+         ls_accepted_share=float(accepted.float().mean()),
+         accepted_trial_histogram=torch.bincount(
+             picked, minlength=LS_TRIALS).tolist(),
+         median_kkt_error_per_step=[float(s.kkt_error.median())
+                                    for s in history],
+         frozen_scenario_steps=int(sum(int((s.alpha_primal <= 0).sum())
+                                       for s in history)),
+         launches=launches)
+    del mpc, sol_b, history
+
+    # (c) 4096 scenarios: each step's host schedule and its update, timed
+    # apart; the host schedule once more in its three pieces
+    offsets = random_offsets(MPC_BIG)
+    mpc, sol_b, q_b, v_b = build_mpc(MPC_BIG, torch.float32, "cuda",
+                                     options_for(False, False), offsets)
+    solver = mpc.solver
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sched_ms, update_ms, stats_per_step, u0_acc = [], [], [], None
+    frozen = 0
+    for k in range(MPC_STEPS):
+        sol_b, _, stats, times = timed_step(mpc, MPC_DT * k, sol_b, q_b, v_b)
+        sched_ms.append(times[0])
+        update_ms.append(times[1])
+        stats_per_step.append(times[2])
+        frozen += int((stats.alpha_primal <= 0).sum())
+        if k + 1 == MPC_ACC_STEPS:
+            u0_acc = sol_b.u[:CPU_SCENARIOS, 0].double().cpu()
+    launches = read_launches("plain", MPC_STEPS)
+    total = {k: total[k] + launches[k] for k in total}
+    peak = torch.cuda.max_memory_allocated()
+    frozen_last = int((stats.alpha_primal <= 0).sum())
+    if not bool(torch.isfinite(sol_b.u).all()
+                and torch.isfinite(stats.cost).all()):
+        raise AssertionError("4096 scenarios: non-finite result")
+    pieces = {"sequences": [], "discretize": [], "to_device": []}
+    for k in range(MPC_STEPS):
+        t = MPC_DT * k
+        t0 = time.perf_counter()
+        seqs = mpc.sequences_at(t)
+        t1 = time.perf_counter()
+        arrays = native.discretize_arrays(seqs, np.full(MPC_BIG, t),
+                                          solver.T, solver.N)
+        t2 = time.perf_counter()
+        schedule_from_arrays(*(arrays[f] for f in SCHEDULE_FIELDS),
+                             dtype=solver.dtype, device=solver.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(pieces, (t1 - t0, t2 - t1, t3 - t2)):
+            pieces[key].append(1e3 * dt)
+    del sol_b, stats
+
+    # the first scenarios in f64, on the card and on the CPU (the same draw,
+    # sliced): the card's per-scenario MPC against the CPU's. The f32 run
+    # freezes scenarios (a non-finite direction: in f32 one stage's control
+    # Hessian turns indefinite past the rescue ladder's last rung, in the JAX
+    # package too), so its u0 is reported against the f64 run, not held
+    n = CPU_SCENARIOS
+    u0_f64 = {}
+    for device in ("cuda", "cpu"):
+        ref, sol_c, q_c, v_c = build_mpc(MPC_BIG, torch.float64, device,
+                                         options_for(False, False), offsets)
+        ref.phase_offsets = offsets[:n]
+        sol_c, q_c, v_c = sol_c.map(lambda x: x[:n]), q_c[:n], v_c[:n]
+        reset_launches()
+        for k in range(MPC_ACC_STEPS):
+            sol_c, u0_c, _ = ref.step(MPC_DT * k, sol_c, q_c, v_c)
+        u0_f64[device] = u0_c.cpu()
+        if device == "cuda":
+            f64_launches = read_launches("plain", MPC_ACC_STEPS)
+            total = {k: total[k] + f64_launches[k] for k in total}
+        del ref, sol_c
+    err = float((u0_f64["cuda"] - u0_f64["cpu"]).abs().max())
+    if not err <= U0_TOL:
+        raise AssertionError(f"4096 scenarios: max|u0_f64_cuda - u0_f64_cpu|"
+                             f" = {err:.3e} above {U0_TOL:g}")
+    err_f32 = float((u0_acc - u0_f64["cpu"]).abs().max())
+    steady = slice(1, None)            # the first step pays one-time costs
+    step_ms = [a + b for a, b in zip(sched_ms, update_ms)]
+    emit(phase="batched_mpc", part="batch_4096", gpu=gpu, batch=MPC_BIG,
+         horizon=N_HORIZON, dtype="float32", steps=MPC_STEPS,
+         ms_per_step=float(np.mean(step_ms[steady])),
+         schedules_at_ms=float(np.mean(sched_ms[steady])),
+         update_ms=float(np.mean(update_ms[steady])),
+         schedules_at_share=float(np.sum(sched_ms[steady])
+                                  / np.sum(step_ms[steady])),
+         schedules_at_pieces_ms={k: float(np.mean(v)) for k, v in
+                                 pieces.items()},
+         step_ms_each=step_ms, schedules_at_ms_each=sched_ms,
+         solves_per_s=MPC_BIG / (1e-3 * float(np.mean(step_ms[steady]))),
+         peak_memory_bytes=peak,
+         impulse_slot_patterns_per_step=[x[0] for x in stats_per_step],
+         max_impulse_stages=max(x[1] for x in stats_per_step),
+         max_switching_stages=max(x[2] for x in stats_per_step),
+         frozen_scenario_steps=frozen, frozen_at_last_step=frozen_last,
+         cpu_scenarios=n, steps_compared=MPC_ACC_STEPS,
+         max_abs_u0_err_f64_card_vs_cpu=err, tolerance=U0_TOL,
+         max_abs_u0_err_f32_vs_f64=err_f32,
+         u0_scale=float(u0_f64["cpu"].abs().max()), launches=launches)
+    return total
+
+
+def build_standing(batch, dtype, device):
+    """BASELINE #3 (``tools/accuracy_oracle.py::run_case("standing")``)
+    through the port's API: ``build``'s model, cost, constraints and measured
+    states, all four feet on the ground over the horizon, the default options.
+    Returns (bs, sol_b, q_b, v_b, sched)."""
+    bs, sol_b, q_b, v_b, _ = build(batch, N_HORIZON, dtype, device,
+                                   options=options_for(True, True))
+    solver = bs.solver
+    sched = it.static_schedule(solver.cm.nc, N_HORIZON, T_HORIZON / N_HORIZON,
+                               [True] * 4, standing_feet(solver), dtype=dtype,
+                               device=solver.device)
+    q0 = anymal.standing_configuration(solver.model)
+    solver.set_solution(q0, torch.zeros_like(v_b[0]), schedule=sched)
+    solver.init_constraints(sched)
+    return bs, it.batch_solution(solver.solution, batch), q_b, v_b, sched
+
+
+def phase_standing(gpu):
+    """ANYmal standing at B=512 in f32: ms per update and launches, then f32
+    after 15 updates against the port's f64 on the CPU after 25."""
+    bs, sol_b, q_b, v_b, sched = build_standing(BATCH, torch.float32, "cuda")
+    if sched.host_counts() != (0, 0):
+        raise AssertionError(f"standing counts {sched.host_counts()}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sol_b, history, wall, warmup_s = timed_updates(
+        bs, sol_b, (q_b, v_b, sched), STANDING_UPDATES - 1)
+    launches = read_launches("line_search", STANDING_UPDATES)
+    peak = torch.cuda.max_memory_allocated()
+    n = CPU_SCENARIOS
+    u0 = sol_b.u[:n, 0].double().cpu()
+    ref, sol_c, q_c, v_c, sched_c = build_standing(BATCH, torch.float64, "cpu")
+    sol_c, q_c, v_c = sol_c.map(lambda x: x[:n]), q_c[:n], v_c[:n]
+    for _ in range(STANDING_REF_UPDATES):
+        sol_c, stats_c = ref.update(sol_c, T0, q_c, v_c, sched_c)
+    err = float((u0 - sol_c.u[:, 0]).abs().max())
+    if not err <= U0_REF_TOL:
+        raise AssertionError(f"standing: max|u0_f32_cuda - u0_f64_cpu| = "
+                             f"{err:.3e} above {U0_REF_TOL:g}")
+    accepted = torch.stack([s.ls_accepted for s in history])
+    emit(phase="standing", gpu=gpu, batch=BATCH, horizon=N_HORIZON,
+         dtype="float32", updates=STANDING_UPDATES, warmup_s=warmup_s,
+         ms_per_update=1e3 * wall / len(history),
+         solves_per_s=BATCH * len(history) / wall, peak_memory_bytes=peak,
+         launches=launches,
+         launches_per_update={k: v // STANDING_UPDATES
+                              for k, v in launches.items()},
+         ls_accepted_share=float(accepted.float().mean()),
+         median_kkt_error_per_update=[float(s.kkt_error.median())
+                                      for s in history],
+         scenarios_compared=n, updates_f64_reference=STANDING_REF_UPDATES,
+         max_kkt_error_f64_reference=float(stats_c.kkt_error.max()),
+         max_abs_u0_err=err, tolerance=U0_REF_TOL,
+         u0_scale=float(sol_c.u[:, 0].abs().max()))
+    return launches
+
+
+def closed_loop_solver(dtype, device, gait, n_horizon=N_HORIZON,
+                       t_horizon=T_HORIZON, options=None):
+    """One ANYmal MPC (``build``'s cost and constraints, the shipping options
+    of the accuracy oracle unless told otherwise) warm-started at rest, and
+    the standing configuration."""
+    bs, *_ = build(1, n_horizon, dtype, device, t_horizon=t_horizon,
+                   options=options or it.SolverOptions(
+                       barrier=1e-3, use_line_search=False, max_step_norm=1.0))
+    solver = bs.solver
+    mpc = it.MPC(solver, gait, standing_feet(solver))
+    q0 = anymal.standing_configuration(solver.model)
+    sched = mpc.schedule_at(0.0)
+    solver.set_solution(q0, torch.zeros_like(q0[1:]), schedule=sched)
+    solver.init_constraints(sched)
+    return mpc, q0
+
+
+def run_closed_loop(device, periods, timings=None):
+    """``tools/accuracy_oracle.py::run_closed_loop`` on the port: f64 and
+    f32 MPCs see the states that the f64 torques drive through the pinned-
+    contact simulator (f64). Returns the f64 and f32 u0 of every period."""
+    gait = it.TrotGait(t_start=CL_GAIT_START)
+    mpcs = {dtype: closed_loop_solver(dtype, device, gait)[0]
+            for dtype in (torch.float64, torch.float32)}
+    ref = mpcs[torch.float64]
+    m, cm, device = ref.solver.model, ref.solver.cm, ref.solver.device
+    q = ref.solver.solution.q[0].clone()
+    v = torch.zeros(m.nv, dtype=torch.float64, device=device)
+    u0s = {dtype: [] for dtype in mpcs}
+    t = 0.0
+    for _ in range(periods):
+        for dtype, mpc in mpcs.items():
+            sync(device)
+            t0 = time.perf_counter()
+            u0, _ = mpc.step(t, q.to(dtype), v.to(dtype))
+            u0s[dtype].append(u0.double().cpu())
+            if timings is not None:
+                timings[dtype].append(1e3 * (time.perf_counter() - t0))
+        active, feet = gait.build_sequence(ref.feet0, t, t + 1.0).status_at(t)
+        sync(device)
+        t0 = time.perf_counter()
+        q, v = it.pinned_contact_step(m, cm, q, v,
+                                      u0s[torch.float64][-1].to(device),
+                                      torch.as_tensor(active), feet, CL_DT)
+        sync(device)
+        if timings is not None:
+            timings["simulator"].append(1e3 * (time.perf_counter() - t0))
+        t += CL_DT
+    return u0s
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tracking_error(law, device):
+    """tests/test_mpc.py::test_lqr_policy_interpolation_improves_tracking:
+    standing (no events), a perturbed start, ZOH_PERIODS control periods of
+    ZOH_SUBSTEPS simulator substeps with the torque held (zoh) or from the
+    LQR policy (lqr). Returns the summed squared state error."""
+    mpc, q0 = closed_loop_solver(torch.float64, device, it.TrotGait(t_start=1e6),
+                                 n_horizon=ZOH_N, t_horizon=ZOH_T,
+                                 options=it.SolverOptions(barrier=1e-3))
+    m, cm = mpc.solver.model, mpc.solver.cm
+    dq = torch.zeros(m.nv, dtype=torch.float64, device=q0.device)
+    dq[2], dq[4] = 0.03, 0.05
+    q = model_mod.integrate(m, q0, dq)
+    v = torch.zeros_like(dq)
+    v[0] = 0.1
+    err, t, dt = 0.0, 0.0, CL_DT / ZOH_SUBSTEPS
+    for _ in range(ZOH_PERIODS):
+        if law == "lqr":
+            u0, policy, _ = mpc.step_with_policy(t, q, v)
+        else:
+            u0, _ = mpc.step(t, q, v)
+            policy = None
+        for _ in range(ZOH_SUBSTEPS):
+            u = policy(q, v) if policy is not None else u0
+            q, v = it.pinned_contact_step(m, cm, q, v, u,
+                                          torch.ones(4, dtype=torch.bool),
+                                          mpc.feet0, dt)
+        t += CL_DT
+        dqe = model_mod.difference(m, q0, q)
+        err += float((dqe * dqe).sum()) + float((v * v).sum())
+    return err
+
+
+def phase_closed_loop(gpu):
+    """The accuracy oracle's closed loop on the card (f64 and f32 MPC, the
+    f64 torques driving the simulator), its first periods against the CPU,
+    then the ZOH-against-LQR tracking comparison. Returns the launches."""
+    timings = {torch.float64: [], torch.float32: [], "simulator": []}
+    reset_launches()
+    u0s = run_closed_loop("cuda", CL_PERIODS, timings)
+    launches = read_launches("plain", 2 * CL_PERIODS)
+    total = dict(launches)
+    u64, u32 = u0s[torch.float64], u0s[torch.float32]
+    if not all(bool(torch.isfinite(u).all()) for u in u64 + u32):
+        raise AssertionError("closed loop: non-finite torque")
+    per_period = [float((a - b).abs().max()) for a, b in zip(u32, u64)]
+    cpu = run_closed_loop("cpu", CL_CPU_PERIODS)[torch.float64]
+    card_cpu = max(float((a - b).abs().max()) for a, b in zip(u64, cpu))
+    if not card_cpu <= CL_TOL:
+        raise AssertionError(f"closed loop: f64 card and CPU u0 differ by "
+                             f"{card_cpu:.3e} (limit {CL_TOL:g})")
+
+    errs = {}
+    for law, config in (("zoh", "zoh_update"), ("lqr", "lqr_update_and_policy")):
+        reset_launches()
+        errs[law] = tracking_error(law, "cuda")
+        launches = read_launches(config, ZOH_PERIODS)
+        total = {k: total[k] + launches[k] for k in total}
+    if not (np.isfinite(errs["lqr"]) and errs["lqr"] < errs["zoh"]):
+        raise AssertionError(f"LQR policy does not track better: {errs}")
+    emit(phase="closed_loop", gpu=gpu, horizon=N_HORIZON, periods=CL_PERIODS,
+         dt_mpc=CL_DT, per_period_max_abs_u0_err_f32=per_period,
+         max_abs_u0_err_f32=max(per_period),
+         u0_scale=max(float(u.abs().max()) for u in u64),
+         ms_per_period_update_f64=float(np.mean(timings[torch.float64][1:])),
+         ms_per_period_update_f32=float(np.mean(timings[torch.float32][1:])),
+         ms_per_period_simulator=float(np.mean(timings["simulator"][1:])),
+         cpu_periods=CL_CPU_PERIODS, max_abs_u0_err_card_vs_cpu_f64=card_cpu,
+         card_vs_cpu_tolerance=CL_TOL,
+         tracking_error_zoh=errs["zoh"], tracking_error_lqr=errs["lqr"],
+         zoh_horizon=ZOH_N, zoh_periods=ZOH_PERIODS,
+         zoh_substeps=ZOH_SUBSTEPS)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1043,6 +1479,9 @@ def main():
     cost_launches = phase_costs(gpu)
     launches = {k: launches[k] + unconstr_launches[k] + cost_launches[k]
                 for k in launches}
+    for phase in (phase_batched_mpc, phase_standing, phase_closed_loop):
+        phase_launches = phase(gpu)
+        launches = {k: launches[k] + phase_launches[k] for k in launches}
 
     print(gpu)
     kernels = []

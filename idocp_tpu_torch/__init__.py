@@ -8,9 +8,12 @@ families with a serial Riccati sweep, the whole-body ``OCPSolver`` (Newton
 update with the filter line search and the KKT residual, ``solve`` with
 barrier continuation, the LQR policy, impulse cost and impulse constraints)
 and the fixed-base ``UnconstrOCPSolver``, ``BatchedSolver`` over either (on a
-schedule shared by the batch), every cost and constraint component, and
-everything below them, down to the hand-written CUDA kernel behind
-``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``.
+schedule shared by the batch or one per scenario), the MPC drivers (``MPC``
+with ``step_with_policy``, ``BatchedMPC`` with per-scenario gait phases), the
+batched schedule discretizer (host C++ built at first use), the pinned-contact
+simulator, every cost and constraint component, and everything below them,
+down to the hand-written CUDA kernel behind ``ops.chol_tri_inv`` and
+``ops.chol_rescue_tri_inv``.
 """
 from .constraints.components import (
     ConstraintComponent, ContactNormalForce, FrictionCone,
@@ -23,18 +26,20 @@ from .cost.base import CostComponent
 from .cost.components import (CoMCost, ConfigurationSpaceCost,
                               ContactForceCost, ImpulseCost, TaskSpace3DCost,
                               TaskSpace6DCost)
+from .hybrid.native import discretize_batch
 from .hybrid.schedule import (ContactSequence, DiscreteEvent, HorizonSchedule,
-                              static_schedule)
+                              stack_schedules, static_schedule)
 from .ocp.data import Solution, zero_solution
 from .parallel.batch import BatchedSolver, batch_solution
 from .riccati.recursion import LQRPolicy
 from .robot.contact import ContactModel
 from .robot.model import ModelBuilder, RobotModel, difference, integrate
 from .robot.urdf import load_urdf
-from .solver.mpc import TrotGait, schedule_at
+from .solver.mpc import MPC, BatchedMPC, TrotGait, schedule_at
 from .solver.ocp_solver import OCPSolver
 from .solver.options import SolverOptions
 from .solver.unconstr_ocp_solver import UnconstrOCPSolver
+from .utils.simulation import pinned_contact_step
 
 __version__ = "0.1.0"
 
@@ -49,7 +54,9 @@ __all__ = [
     "JointTorquesLowerLimit", "JointTorquesUpperLimit", "default_joint_limits",
     "ImpulseConstraintComponent", "ImpulseFrictionCone", "ImpulseNormalForce",
     "ContactSequence", "DiscreteEvent", "HorizonSchedule", "static_schedule",
+    "stack_schedules", "discretize_batch",
     "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
     "OCPSolver", "UnconstrOCPSolver", "TrotGait", "schedule_at",
-    "BatchedSolver", "batch_solution",
+    "MPC", "BatchedMPC", "BatchedSolver", "batch_solution",
+    "pinned_contact_step",
 ]

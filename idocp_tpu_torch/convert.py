@@ -72,8 +72,9 @@ def solution_to_numpy(sol: Solution) -> dict:
 
 def schedule_from_numpy(d: dict, dtype=torch.float64,
                         device="cuda") -> HorizonSchedule:
-    """HorizonSchedule from arrays; the impulse / switching counts are taken
-    from the masks here."""
+    """HorizonSchedule from arrays, shared (N, ...) or batched (B, N, ...);
+    the impulse / switching counts are taken from the masks here (the max
+    over scenarios of a batched one)."""
     return schedule_from_arrays(*(d[k] for k in SCHEDULE_FIELDS), dtype=dtype,
                                 device=device)
 

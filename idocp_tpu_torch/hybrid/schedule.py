@@ -12,6 +12,12 @@ The numbers of impulse stages and of stages with switching rows are real
 fields of ``HorizonSchedule`` (``n_impulse``, ``n_switching``), set by every
 constructor while the masks are still numpy, so the solver validates a schedule
 without reading anything back from the device.
+
+A schedule is either shared by a batch of scenarios (fields (N, ...)) or holds
+one schedule per scenario (fields (B, N, ...), e.g. from
+``hybrid.native.discretize_batch``); the counts of a batched schedule are the
+max over its scenarios. ``stack_schedules`` and ``HorizonSchedule.scenario``
+stand for the twin's ``tree_map`` stack and index.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ TENSOR_FIELDS = ("dt", "t_offset", "contact_active", "contact_pos", "imp_mask",
 
 @dataclasses.dataclass(frozen=True)
 class HorizonSchedule:
-    """Stacked per-stage annotations consumed by the solver."""
+    """Stacked per-stage annotations consumed by the solver; every tensor
+    field may carry a leading scenario axis (B, N, ...)."""
     dt: torch.Tensor              # (N,)
     t_offset: torch.Tensor        # (N,) stage start minus t0
     contact_active: torch.Tensor  # (N, nc) bool
@@ -42,9 +49,33 @@ class HorizonSchedule:
     n_switching: int              # stages with any switching-constraint row
 
     def host_counts(self):
-        """(n_impulse, n_switching) as host values; both bound the solver's
-        impulse-slot budget."""
+        """(n_impulse, n_switching) as host values (a batched schedule's: the
+        max over scenarios); both bound the solver's impulse-slot budget."""
         return self.n_impulse, self.n_switching
+
+    @property
+    def batched(self) -> bool:
+        """True when every field carries a leading scenario axis."""
+        return self.imp_mask.dim() == 2
+
+    def scenario(self, b: int) -> "HorizonSchedule":
+        """Scenario b of a batched schedule, as a one-scenario schedule (its
+        own counts are read from its masks)."""
+        if not self.batched:
+            raise ValueError("scenario() needs a batched schedule")
+        kw = {name: getattr(self, name)[b] for name in TENSOR_FIELDS}
+        n_imp, n_sw = count_stages(kw["imp_mask"].cpu().numpy(),
+                                   kw["sw_contact"].cpu().numpy())
+        return dataclasses.replace(self, **kw, n_impulse=n_imp,
+                                   n_switching=n_sw)
+
+    def repeat_scenarios(self, k: int) -> "HorizonSchedule":
+        """A batched schedule with each scenario repeated k times in a row
+        ((B, ...) -> (B k, ...), scenario b at rows b k ... b k + k - 1); the
+        counts stay."""
+        return dataclasses.replace(self, **{
+            name: torch.repeat_interleave(getattr(self, name), k, dim=0)
+            for name in TENSOR_FIELDS})
 
     def to(self, device=None, dtype=None) -> "HorizonSchedule":
         kw = {}
@@ -56,16 +87,32 @@ class HorizonSchedule:
 
 
 def count_stages(imp_mask, sw_contact):
-    """Host-side (n_impulse, n_switching) from numpy mask arrays."""
-    im = np.asarray(imp_mask)
+    """Host-side (n_impulse, n_switching) from numpy mask arrays, (N,) /
+    (N, nc) or batched (B, N) / (B, N, nc): counted per scenario over the
+    stage axis, the max over scenarios."""
+    im = np.asarray(imp_mask).reshape((-1,) + np.shape(imp_mask)[-1:])
     sw = np.asarray(sw_contact).any(axis=-1)
-    return int(im.sum()), int(sw.sum())
+    sw = sw.reshape((-1,) + sw.shape[-1:])
+    return int(im.sum(axis=-1).max()), int(sw.sum(axis=-1).max())
+
+
+def stack_schedules(schedules) -> HorizonSchedule:
+    """B one-scenario schedules -> one batched schedule (fields (B, N, ...));
+    the counts are the max over the scenarios."""
+    schedules = list(schedules)
+    return dataclasses.replace(
+        schedules[0],
+        **{name: torch.stack([getattr(s, name) for s in schedules], dim=0)
+           for name in TENSOR_FIELDS},
+        n_impulse=max(s.n_impulse for s in schedules),
+        n_switching=max(s.n_switching for s in schedules))
 
 
 def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
                          imp_contact, sw_contact, sw_pos, dtype=torch.float64,
                          device="cuda") -> HorizonSchedule:
-    """HorizonSchedule from host arrays; the counts are taken here."""
+    """HorizonSchedule from host arrays, shared (N, ...) or batched
+    (B, N, ...); the counts are taken here."""
     device = resolve_device(device)
     n_imp, n_sw = count_stages(imp_mask, sw_contact)
     flt = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
@@ -86,6 +133,9 @@ class DiscreteEvent:
     active: np.ndarray        # (nc,) bool: contact set AFTER the event
     position: np.ndarray      # (nc, 3): contact positions after the event
 
+    def is_impulse(self, prev_active) -> bool:
+        return bool(np.any(self.active & ~np.asarray(prev_active)))
+
 
 class ContactSequence:
     """Ordered contact phases over time."""
@@ -105,6 +155,16 @@ class ContactSequence:
             self._init_position
         position = prev if position is None else np.asarray(position, float)
         self.events.append(DiscreteEvent(float(time), active, position))
+
+    def pop_front(self):
+        """Drop the oldest event (the MPC window slid past it) and absorb it
+        into the initial status."""
+        ev = self.events.pop(0)
+        self._init_active = ev.active
+        self._init_position = ev.position
+
+    def pop_back(self):
+        self.events.pop()
 
     def status_at(self, t):
         active, pos = self._init_active, self._init_position

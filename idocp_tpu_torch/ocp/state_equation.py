@@ -23,17 +23,39 @@ def mask3_of(active, dtype):
     return active.to(dtype).repeat_interleave(3, dim=-1)
 
 
+def _mass_and_contact_jacobian(model: RobotModel, cm: ContactModel,
+                               fkb: spatial.FK):
+    """(M, J): the dense CRBA mass matrix and the unmasked stacked analytic
+    point Jacobians (..., 3 nc, nv)."""
+    M = spatial.mass_matrix(model, fkb)
+    p_f, fb = spatial.frame_points(model, fkb, cm.frame_ids)
+    J = spatial.point_jacobians(model, fkb, p_f, fb)
+    return M, J.reshape(J.shape[:-3] + (3 * cm.nc, model.nv))
+
+
 def mass_and_contact_jacobian_fk(model: RobotModel, cm: ContactModel,
                                  fkb: spatial.FK):
     """(M, LMi, J) from a shared world-frame FK bundle: dense CRBA mass
     matrix with its INVERSE Cholesky factor, and the unmasked stacked
     analytic point Jacobians (..., 3 nc, nv)."""
-    M = spatial.mass_matrix(model, fkb)
-    p_f, fb = spatial.frame_points(model, fkb, cm.frame_ids)
-    J = spatial.point_jacobians(model, fkb, p_f, fb)
-    J = J.reshape(J.shape[:-3] + (3 * cm.nc, model.nv))
-    LMi = chol_tri_inv(M.contiguous())
-    return M, LMi, J
+    M, J = _mass_and_contact_jacobian(model, cm, fkb)
+    return M, chol_tri_inv(M.contiguous()), J
+
+
+def contact_block_matrix(model: RobotModel, cm: ContactModel, q, active,
+                         fkb=None):
+    """[[M, -Jm^T], [Jm, Sigma]] (..., nv + nf, nv + nf) with Jm = mask J and
+    Sigma = diag(1 - mask): invertible for any active set, decoupling the
+    inactive slots. Returns (the block, Jm, mask3). No factorization: the
+    simulator solves the block as it is. fkb: the FK bundle at q, where the
+    caller has it already."""
+    M, J = _mass_and_contact_jacobian(
+        model, cm, spatial.fk(model, q) if fkb is None else fkb)
+    mask3 = mask3_of(active, J.dtype).expand(J.shape[:-1])
+    Jm = mask3[..., :, None] * J
+    top = torch.cat([M, -Jm.mT], dim=-1)
+    bot = torch.cat([Jm, torch.diag_embed(1.0 - mask3)], dim=-1)
+    return torch.cat([top, bot], dim=-2), Jm, mask3
 
 
 def _apply_chol_inv(Li, b):

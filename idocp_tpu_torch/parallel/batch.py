@@ -1,10 +1,13 @@
 """Scenario batching.
 
 Twin of ``idocp_tpu/parallel/batch.py`` (``batch_solution`` and
-``BatchedSolver`` over either solver; no device mesh and no per-scenario
-schedules yet). The scale-out axis is scenario batching: many independent MPC
-problems (initial states, disturbances) per card, one leading tensor axis.
-The port's solvers are written batch-first, so this is a thin wrapper.
+``BatchedSolver`` over either solver; no device mesh yet). The scale-out axis
+is scenario batching: many independent MPC problems (initial states,
+disturbances, gaits) per card, one leading tensor axis. The port's solvers
+are written batch-first, so this is a thin wrapper. Where the twin is told
+by ``extra_axes`` whether the schedule is shared by the batch or one per
+scenario, the port's ``OCPSolver`` reads it from the schedule's shape
+(``HorizonSchedule.batched``).
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ def batch_solution(sol, batch: int):
 class BatchedSolver:
     """Batched wrapper around an ``OCPSolver`` or an ``UnconstrOCPSolver``.
     ``*extra`` is what the solver takes after the measured state: the
-    ``OCPSolver``'s HorizonSchedule (shared by the whole batch), nothing for
-    the ``UnconstrOCPSolver``."""
+    ``OCPSolver``'s HorizonSchedule, shared by the whole batch (fields
+    (N, ...)) or one per scenario (fields (B, N, ...)), nothing for the
+    ``UnconstrOCPSolver``."""
 
     def __init__(self, solver):
         self.solver = solver

@@ -2,10 +2,11 @@
 center of mass.
 
 Twin of ``idocp_tpu/robot/kinematics.py`` (``body_poses_stacked``,
-``frame_pose``, ``frame_position``, ``frame_positions``, ``com``; the twin's
-autodiff-based velocity / Jacobian helpers are replaced by the closed forms
-of ``robot/spatial.py``, ``frame_jacobian`` and ``com_jacobian`` among
-them). The tree recursion runs over tree depth: each level handles all its
+``frame_pose``, ``frame_position``, ``frame_positions``, ``com``, and
+``frame_velocities`` / ``frame_accelerations`` / ``frame_pva``, which the twin
+writes as ``jax.jvp`` towers and the port as the closed forms of
+``spatial.motion`` + ``spatial.point_pva``; the twin's Jacobian helpers are
+replaced by ``spatial.frame_jacobian`` / ``com_jacobian``). The tree recursion runs over tree depth: each level handles all its
 bodies as one gather / compose / concatenate step. ``q`` may carry leading
 dimensions.
 """
@@ -142,3 +143,27 @@ def com(model: RobotModel, q):
     Rw, pw = body_poses_stacked(model, q)
     ci = pw + lie.mv3(Rw, model.com)
     return (model.mass[:, None] * ci).sum(dim=-2) / model.mass.sum()
+
+
+def frame_pva(model: RobotModel, q, v, a, frame_ids):
+    """(positions, velocities, classical accelerations) of frame origins,
+    each (..., len(frame_ids), 3), world frame: the derivatives of the
+    positions along q' = v, v' = a (``integrate``'s tangent). With a = 0 the
+    acceleration is J'(q) v."""
+    from . import spatial          # spatial builds on this module
+    fkb = spatial.fk(model, q)
+    mo = spatial.motion(model, fkb, v, a, derivatives=False)
+    return spatial.point_pva(model, mo,
+                             *spatial.frame_points(model, fkb, frame_ids))
+
+
+def frame_velocities(model: RobotModel, q, v, frame_ids):
+    """World-frame linear velocities of frame origins (..., nf, 3)."""
+    return frame_pva(model, q, v, torch.zeros_like(v), frame_ids)[1]
+
+
+def frame_accelerations(model: RobotModel, q, v, a, frame_ids):
+    """Classical linear accelerations of frame origins (..., nf, 3) (d/dt of
+    the velocity along q' = v, v' = a): what the Baumgarte contact
+    constraint needs."""
+    return frame_pva(model, q, v, a, frame_ids)[2]

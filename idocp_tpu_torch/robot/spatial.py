@@ -357,6 +357,13 @@ def rnea(model: RobotModel, f: FK, mo: Motion, f_ext_b=None):
     return tau, fB, F
 
 
+def nonlinear_effects(model: RobotModel, f: FK, v):
+    """The bias torques C(q, v) v + g(q) (..., nv): RNEA at a = 0 (twin:
+    ``idocp_tpu/robot/dynamics.py::nonlinear_effects``)."""
+    mo = motion(model, f, v, torch.zeros_like(v), derivatives=False)
+    return rnea(model, f, mo)[0]
+
+
 def rnea_derivatives(model: RobotModel, f: FK, mo: Motion, F, dfext_q=None):
     """(dtau/dq, dtau/dv) tangent-space Jacobians (..., nv, nv), analytic.
 

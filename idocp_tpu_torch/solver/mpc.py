@@ -1,16 +1,23 @@
-"""Gait generation and the receding-horizon schedule.
+"""MPC drivers: gait generation and receding-horizon solving.
 
-Twin of ``idocp_tpu/solver/mpc.py`` (``TrotGait`` and the ``schedule_at``
-logic of ``MPC``; host-side numpy, a near-verbatim copy). The stepping MPC
-drivers are not ported yet.
+Twin of ``idocp_tpu/solver/mpc.py`` (``TrotGait``, ``MPC`` with ``step`` and
+``step_with_policy``, ``BatchedMPC``; the gait is host-side numpy, a
+near-verbatim copy). ``BatchedMPC`` gives every scenario its own gait phase:
+the schedules are built by the native batched discretizer and enter the
+batched update with a leading scenario axis. The module-level
+``schedule_at`` is ``MPC.schedule_at`` for a bare solver.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..hybrid.native import discretize_batch
 from ..hybrid.schedule import ContactSequence, HorizonSchedule
+from ..parallel.batch import BatchedSolver
+from ..robot import model as model_mod
 
 # leg index order matches models.anymal: LF, LH, RF, RH
 _PAIR_A = (0, 3)  # LF + RH
@@ -25,6 +32,9 @@ class TrotGait:
     step_length: float = 0.15
     step_height: float = 0.1  # used by swing-foot cost references
     t_start: float = 0.5      # stand still before the first step
+
+    def cycle_time(self):
+        return 2 * (self.swing_time + self.double_support_time)
 
     def build_sequence(self, feet0: np.ndarray, t0: float, t_end: float
                        ) -> ContactSequence:
@@ -60,3 +70,88 @@ def schedule_at(solver, gait: TrotGait, feet0, t) -> HorizonSchedule:
     seq = gait.build_sequence(np.asarray(feet0, float), t, t + solver.T + 1.0)
     return seq.discretize(t, solver.T, solver.N, dtype=solver.dtype,
                           device=solver.device)
+
+
+class MPC:
+    """Receding-horizon wrapper: rebuilds the schedule each control step and
+    performs one warm-started Newton iteration."""
+
+    def __init__(self, solver, gait: TrotGait, feet0, t_end=1e9):
+        self.solver = solver
+        self.gait = gait
+        self.feet0 = np.asarray(feet0, float)
+        self.t_end = t_end
+
+    def schedule_at(self, t) -> HorizonSchedule:
+        return schedule_at(self.solver, self.gait, self.feet0, t)
+
+    def step(self, t, q, v):
+        """One update at the measured state: (u0 (nu,), stats)."""
+        stats = self.solver.update_solution(t, q, v, self.schedule_at(t))
+        return self.solver.solution.u[0], stats
+
+    def step_with_policy(self, t, q, v):
+        """``update_solution`` and the stage-0 LQR feedback policy around the
+        NEW iterate: the gains come from a Riccati factorization at the
+        iterate the update produced, not from the update's own (taken at the
+        old one), as in the twin. Returns (u0, policy, stats) where
+        policy(q_sim, v_sim) = u0 + K0 [q0s (-) q_sim; v_sim - v0s]: first-
+        order state feedback that tracks the plan between control updates
+        instead of holding u0 (zero-order hold)."""
+        solver = self.solver
+        sched = self.schedule_at(t)
+        stats = solver.update_solution(t, q, v, sched)
+        sol = solver.solution
+        K0 = solver.get_lqr_policy(t, q, v, sched).K[0]
+        u0, q0s, v0s = sol.u[0], sol.q[0], sol.v[0]
+        model, kw = solver.model, dict(dtype=solver.dtype,
+                                       device=solver.device)
+
+        def policy(q_sim, v_sim):
+            q_sim = torch.as_tensor(q_sim, **kw)
+            v_sim = torch.as_tensor(v_sim, **kw)
+            dx = torch.cat([model_mod.difference(model, q0s, q_sim),
+                            v_sim - v0s], dim=-1)
+            return u0 + K0 @ dx
+
+        return u0, policy, stats
+
+
+class BatchedMPC:
+    """Receding-horizon driver over a batch of scenarios with PER-SCENARIO
+    gait phases: scenario b runs the gait with t_start = gait.t_start +
+    phase_offsets[b]. Its schedules come from the native batched
+    discretizer and enter ``BatchedSolver.update`` with a leading batch
+    axis."""
+
+    def __init__(self, solver, gait: TrotGait, feet0, phase_offsets):
+        self.solver = solver
+        self.gait = gait
+        self.feet0 = np.asarray(feet0, float)
+        self.phase_offsets = np.asarray(phase_offsets, float)
+        self.bs = BatchedSolver(solver)
+
+    @property
+    def batch(self):
+        return len(self.phase_offsets)
+
+    def sequences_at(self, t):
+        """Each scenario's contact sequence over [t, t + T + 1]."""
+        end = t + self.solver.T + 1.0
+        return [dataclasses.replace(self.gait, t_start=self.gait.t_start + off
+                                    ).build_sequence(self.feet0, t, end)
+                for off in self.phase_offsets]
+
+    def schedules_at(self, t) -> HorizonSchedule:
+        """The batched schedule (fields (B, N, ...)) of the window at t, on
+        the solver's device and dtype."""
+        return discretize_batch(self.sequences_at(t), np.full(self.batch, t),
+                                self.solver.T, self.solver.N,
+                                dtype=self.solver.dtype,
+                                device=self.solver.device)
+
+    def step(self, t, sol_b, q_b, v_b):
+        """One warm-started Newton iteration per scenario; returns (new
+        batched Solution, first-interval torques (B, nu), stats)."""
+        sol_b, stats = self.bs.update(sol_b, t, q_b, v_b, self.schedules_at(t))
+        return sol_b, sol_b.u[:, 0], stats

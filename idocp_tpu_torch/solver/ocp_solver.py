@@ -7,9 +7,11 @@ constraints, all static-shape via HorizonSchedule masks. One Newton iteration
 per ``update_solution`` call, a Newton loop to tolerance per ``solve`` call,
 under ``torch.no_grad()``.
 
-Every function works on a batch of scenarios sharing one schedule: stages are
-flattened to (B N, ...) for the linearization and the value-only evaluation
-and kept as (B, N, ...) inside the Riccati loop. The single-scenario entry
+Every function works on a batch of scenarios, on one schedule shared by the
+batch (fields (N, ...)) or on one schedule per scenario (fields (B, N, ...),
+``HorizonSchedule.batched``): stages are flattened to (B N, ...) for the
+linearization and the value-only evaluation and kept as (B, N, ...) inside
+the Riccati loop. The single-scenario entry
 points (``update_solution``, ``kkt_error``, ``solve``, ``get_lqr_policy``)
 are the same code with B = 1; ``parallel.batch.BatchedSolver`` is a thin
 wrapper around the batched ones.
@@ -151,18 +153,38 @@ class OCPSolver(_SolverCommon):
 
     # ------------------------------------------------------------------
     def _impulse_slots(self, sol, sched: HorizonSchedule):
-        """The (up to k) impulse stages of the shared schedule with their
+        """The (up to k) impulse stages of each scenario's schedule with their
         states flattened to (L k, ...); extra slots land on arbitrary
         non-impulse stages with mask 0 (their gated quantities are
-        identity)."""
+        identity). Returns ``slots``: (k,) stage indices of a shared schedule
+        or (L, k) per scenario of a batched one."""
         k, L = self.max_impulse_stages, sol.q.shape[0]
-        slots = torch.argsort(torch.logical_not(sched.imp_mask),
-                              stable=True)[:k]
-        q_s = _flat(torch.index_select(sol.q, 1, slots))
-        v_s = _flat(torch.index_select(sol.v, 1, slots))
-        mask_s = sched.imp_mask[slots].expand(L, k).reshape(-1)
-        ic_s = _flat(sched.imp_contact[slots].expand(L, k, self.cm.nc))
-        return slots, q_s, v_s, mask_s, ic_s
+        if not sched.batched:
+            slots = torch.argsort(torch.logical_not(sched.imp_mask),
+                                  stable=True)[:k]
+            q_s = _flat(torch.index_select(sol.q, 1, slots))
+            v_s = _flat(torch.index_select(sol.v, 1, slots))
+            mask_s = sched.imp_mask[slots].expand(L, k).reshape(-1)
+            ic_s = _flat(sched.imp_contact[slots].expand(L, k, self.cm.nc))
+            return slots, q_s, v_s, mask_s, ic_s
+        # per scenario: a stable sort of each row, as the twin's argsort
+        # under vmap
+        slots = torch.argsort(torch.logical_not(sched.imp_mask), dim=-1,
+                              stable=True)[:, :k]
+        take = lambda x: _flat(torch.gather(
+            x, 1, slots[..., None].expand((L, k) + x.shape[2:])))
+        return (slots, take(sol.q), take(sol.v),
+                torch.gather(sched.imp_mask, 1, slots).reshape(-1),
+                take(sched.imp_contact))
+
+    @staticmethod
+    def _scatter(base, slots, out):
+        """base (L, N, ...) with the slot rows out (L, k, ...) written at the
+        stages ``slots``, (k,) shared or (L, k) per scenario (in place)."""
+        if slots.dim() == 1:
+            return base.index_copy_(1, slots, out)
+        idx = slots.reshape(slots.shape + (1,) * (out.dim() - 2))
+        return base.scatter_(1, idx.expand(out.shape), out)
 
     def _imp_quants_all(self, sol, sched: HorizonSchedule):
         """Slot-gathered impulse quantities scattered to (B, N, ...)."""
@@ -182,7 +204,7 @@ class OCPSolver(_SolverCommon):
                  torch.zeros(B, N_, nf, nv, **kw),
                  torch.zeros(B, N_, nf, nv, **kw))
         return tuple(
-            base.index_copy_(1, slots, out.reshape((B, k) + out.shape[1:]))
+            self._scatter(base, slots, out.reshape((B, k) + out.shape[1:]))
             for base, out in zip(bases, outs))
 
     def _imp_values_all(self, sol, sched: HorizonSchedule):
@@ -191,18 +213,24 @@ class OCPSolver(_SolverCommon):
         slots, q_s, v_s, mask_s, ic_s = self._impulse_slots(sol, sched)
         vpost, lam_s = impulse_map(self.model, self.cm, q_s, v_s, ic_s)
         mf = mask_s.to(v_s.dtype)[:, None]
-        v_eff = sol.v[:, :N_].clone().index_copy_(
-            1, slots, (v_s + mf * (vpost - v_s)).reshape(L, k, -1))
-        lam = torch.zeros((L, N_, self.cm.max_dimf), dtype=v_s.dtype,
-                          device=v_s.device).index_copy_(
-            1, slots, (mf * lam_s).reshape(L, k, -1))
+        v_eff = self._scatter(sol.v[:, :N_].clone(), slots,
+                              (v_s + mf * (vpost - v_s)).reshape(L, k, -1))
+        lam = self._scatter(
+            torch.zeros((L, N_, self.cm.max_dimf), dtype=v_s.dtype,
+                        device=v_s.device),
+            slots, (mf * lam_s).reshape(L, k, -1))
         return v_eff, lam
 
     def _stage_args(self, sol, t, sched: HorizonSchedule, with_dual):
         """The per-stage arguments shared by the linearization and the
-        value-only evaluation, flattened to (L N, ...)."""
+        value-only evaluation, flattened to (L N, ...). A shared schedule's
+        (N, ...) fields are expanded over the L scenarios, a batched one's
+        (L, N, ...) are taken as they are."""
         N_, L = self.N, sol.q.shape[0]
-        per_stage = lambda x: _flat(x.expand((L,) + x.shape))
+        if sched.batched:
+            per_stage = _flat
+        else:
+            per_stage = lambda x: _flat(x.expand((L,) + x.shape))
         head = (per_stage(t + sched.t_offset), per_stage(sched.dt),
                 _flat(sol.q[:, :N_]), _flat(sol.v[:, :N_]), _flat(sol.a),
                 _flat(sol.f), _flat(sol.u), _flat(sol.q[:, 1:]),
@@ -281,6 +309,9 @@ class OCPSolver(_SolverCommon):
             filter_size=(self.options.line_search_filter_size
                          if self.options.use_line_search else 0))
         total = float(torch.sum(m.mass)) * 9.81
+        if schedule is not None and schedule.batched:
+            raise ValueError("set_solution takes a one-scenario schedule: "
+                             "pass schedule.scenario(b)")
         if schedule is not None and f0 is None:
             active = schedule.contact_active.cpu().numpy()
             n_act = np.maximum(active.sum(axis=1, keepdims=True), 1)
@@ -341,14 +372,26 @@ class OCPSolver(_SolverCommon):
                     self.options.barrier, self.options.min_slack)
         self.solution = dataclasses.replace(sol, slack=slack, dual=dual)
 
-    def check_schedule(self, schedule: HorizonSchedule):
+    def check_schedule(self, schedule: HorizonSchedule, batch=None):
         """Host-side schedule validation from the schedule's own counts (no
         device read). Guards the impulse-slot gather: a schedule with more
         touchdowns than `max_impulse_stages` would silently treat the
         overflow impulses as plain stages (identity v_eff, zero impulse)
         while their switching rows stayed active. Switching rows are counted
         separately from impulse stages (a hand-built schedule can set
-        sw_contact without imp_mask)."""
+        sw_contact without imp_mask). ``batch``: the number of scenarios of a
+        batched entry point, which takes a shared schedule or one of
+        ``batch`` scenarios; None for a one-scenario entry point, which takes
+        a shared schedule only."""
+        if schedule.batched:
+            if batch is None:
+                raise ValueError(
+                    "a one-scenario entry point takes a schedule without a "
+                    "batch axis: pass schedule.scenario(b)")
+            if schedule.imp_mask.shape[0] != batch:
+                raise ValueError(
+                    f"the schedule holds {schedule.imp_mask.shape[0]} "
+                    f"scenarios, the solution {batch}")
         n_imp, n_sw = schedule.host_counts()
         if max(n_imp, n_sw) > self.max_impulse_stages:
             raise ValueError(
@@ -361,9 +404,10 @@ class OCPSolver(_SolverCommon):
     # ------------------------------------------------------------------
     def update_batched(self, sol_b: Solution, t, q_b, v_b,
                        schedule: HorizonSchedule):
-        """One Newton iteration on a batch of scenarios (leading axis B)
-        sharing ``schedule``: (new batched Solution, UpdateStats of (B,))."""
-        self.check_schedule(schedule)
+        """One Newton iteration on a batch of scenarios (leading axis B) on a
+        shared or a batched ``schedule``: (new batched Solution, UpdateStats
+        of (B,))."""
+        self.check_schedule(schedule, sol_b.q.shape[0])
         return self._update(sol_b, t, q_b, v_b, schedule)
 
     def update_solution(self, t, q, v, schedule: HorizonSchedule):
@@ -376,7 +420,7 @@ class OCPSolver(_SolverCommon):
     def kkt_error_batched(self, sol_b: Solution, t, q_b, v_b,
                           schedule: HorizonSchedule):
         """KKT residual norm (B,) of a batched solution (one linearization)."""
-        self.check_schedule(schedule)
+        self.check_schedule(schedule, sol_b.q.shape[0])
         return self._kkt(sol_b, t, q_b, v_b, schedule)
 
     def kkt_error(self, t, q, v, schedule: HorizonSchedule) -> float:
@@ -435,7 +479,7 @@ class OCPSolver(_SolverCommon):
         Requires options.compute_kkt_error=True (otherwise stats.kkt_error
         is the direction-norm proxy and ``tol`` means that instead). Returns
         (solution, iters (B,) int32, kkt (B,), converged (B,) bool)."""
-        self.check_schedule(schedule)
+        self.check_schedule(schedule, sol_b.q.shape[0])
         *out, self.host_reads = solve_masked(
             self._update, sol_b, (t, q_b, v_b, schedule),
             tol or self.options.kkt_tol,

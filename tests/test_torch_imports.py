@@ -39,6 +39,7 @@ for mod in pkgutil.walk_packages(idocp_tpu_torch.__path__, "idocp_tpu_torch."):
     names.append(mod.name)
 
 from idocp_tpu_torch.ops import _build
+from idocp_tpu_torch.hybrid import native
 from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.hybrid.schedule import static_schedule
 from idocp_tpu_torch import convert
@@ -58,6 +59,7 @@ print(json.dumps({
     "tried": tried,
     "leaked": [m for m in sys.modules if banned(m)],
     "libs_loaded": list(_build._libs),
+    "schedule_lib_loaded": native._lib is not None,
     "build_dir_exists": _build._OUT.exists(),
     "cuda": torch.cuda.is_available(),
     "default_device_raises": {
@@ -96,12 +98,14 @@ def test_every_module_imports_without_jax(probe):
         "ocp.data", "ocp.state_equation", "ocp.stage", "ocp.condensing",
         "riccati.recursion", "solver.options", "solver.core",
         "solver.line_search", "solver.newton_loop", "solver.ocp_solver",
-        "solver.unconstr_ocp_solver", "solver.mpc", "parallel.batch")}
+        "solver.unconstr_ocp_solver", "solver.mpc", "parallel.batch",
+        "hybrid.native", "utils.simulation")}
     assert expected <= set(probe["modules"])
 
 
 def test_import_on_cpu_builds_and_loads_no_kernel(probe):
     assert probe["libs_loaded"] == []
+    assert not probe["schedule_lib_loaded"]
     if not probe["cuda"]:
         assert not probe["build_dir_exists"]
 
