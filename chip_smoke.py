@@ -3,27 +3,30 @@
     python3 chip_smoke.py
 
 Drives the port's main paths through the entry points a user calls. On the
-batched ANYmal trot MPC (``OCPSolver`` -> ``BatchedSolver``, N=20): the
-Newton update without line search (B=512, f32), the update with the filter
-line search on its grid of 8 trials (B=512, f32), the update with the KKT
-residual, and ``BatchedSolver.solve`` to tolerance (B=64, f64). On the
-fixed-base iiwa14 (``UnconstrOCPSolver`` -> ``BatchedSolver``, N=50, the JAX
-package's default options) without and with joint limits: the update (B=512,
-f32), ``BatchedSolver.solve`` (B=64, f64) and the accuracy against a
-converged f64 run. Both workloads again with the task-space, CoM and
-contact-force costs. The MPC drivers: ``BatchedMPC`` with a gait phase per
-scenario at B=512 (equal phases against the shared schedule; random phases
-with the line search) and at B=4096 (the host's schedule and the update timed
-apart), ANYmal standing at B=512, and the closed loop of ``MPC.step`` through
-the pinned-contact simulator in f64 and f32 with the LQR policy against a
-zero-order hold. It builds the CUDA kernel from the sources in this
-checkout, holds both of its entry points (``chol_tri_inv``,
-``chol_rescue_tri_inv``) against their plain PyTorch versions on the card,
-shows that every path went through them (launch counts, asserted per
-configuration), and checks the card's results against the port's own f64
-runs on the CPU. Every failure raises, so the process then exits non-zero. It
-needs one CUDA device and no network. One JSON object per line; the last line
-is ``{"ok": true, "device": {...}}``.
+batched ANYmal trot MPC (``OCPSolver`` -> ``BatchedSolver``, N=20): the Newton
+update without line search (B=512, f32), the update with the filter line
+search on its grid of 8 trials (B=512, f32), the update with the KKT residual,
+and ``BatchedSolver.solve`` to tolerance (B=64, f64). On the fixed-base iiwa14
+(``UnconstrOCPSolver`` -> ``BatchedSolver``, N=50, the JAX package's default
+options) without and with joint limits: the update (B=512, f32),
+``BatchedSolver.solve`` (B=64, f64) and the accuracy against a converged f64
+run. Both workloads again with the task-space, CoM and contact-force costs.
+The MPC drivers: ``BatchedMPC`` with a gait phase per scenario at B=512 (equal
+phases against the shared schedule; random phases with the line search) and at
+B=4096 (the host's schedule and the update timed apart), ANYmal standing at
+B=512, and the closed loop of ``MPC.step`` through the pinned-contact
+simulator in f64 and f32 with the LQR policy against a zero-order hold. The
+parallel-in-time Riccati recursion (``ParNMPCSolver``,
+``UnconstrParNMPCSolver``) beside the serial solvers on the trot and iiwa14 at
+full width, the crossover in N of the recursion alone, and its f64 gates
+(direction and per-scenario ``BatchedMPC`` against the serial path). It builds
+the CUDA kernel from the sources in this checkout, holds both of its entry
+points (``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
+versions on the card, shows that every path went through them (launch counts,
+asserted per configuration), and checks the card's results against the port's
+own f64 runs on the CPU. Every failure raises, so the process then exits
+non-zero. It needs one CUDA device and no network. One JSON object per line;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 import ctypes
 import importlib
@@ -43,7 +46,9 @@ from idocp_tpu_torch.hybrid.schedule import TENSOR_FIELDS as SCHEDULE_FIELDS
 from idocp_tpu_torch.hybrid.schedule import schedule_from_arrays
 from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.ocp.condensing import condense
+from idocp_tpu_torch.ocp.data import CondensedStage
 from idocp_tpu_torch.ops import _build
+from idocp_tpu_torch.riccati import parallel as riccati_parallel
 from idocp_tpu_torch.riccati import recursion
 from idocp_tpu_torch.robot import kinematics
 from idocp_tpu_torch.robot import model as model_mod
@@ -90,13 +95,28 @@ CL_PERIODS, CL_DT, CL_CPU_PERIODS, CL_GAIT_START, CL_TOL = 12, 0.05, 4, 0.25, 1e
 # search's grid and the 8 switching Schur complements; the policy's own
 # direction the same without the grid
 ZOH_N, ZOH_T, ZOH_PERIODS, ZOH_SUBSTEPS = 8, 0.4, 5, 4
+# The parallel-in-time Riccati recursion (ParNMPCSolver,
+# UnconstrParNMPCSolver): per update the linearization's 4 stage / slot
+# factorizations (2 more on the search's grid), then Quu of the elements, the
+# gains' pass on the whole (B N) stack with its masked-off Schur complement
+# (trot only: ns = 12) and G of the switching correction (trot only), one
+# launch each; the fixed base has no rows and no correction. The crossover
+# times the recursion alone on random condensed stages of the trot's and the
+# fixed base's widths; the f64 gates hold the card's parallel direction
+# against its serial one and BatchedMPC's u0 on the two paths.
+PAR_CROSSOVER_N, PAR_REPS, PAR_MPC_STEPS, PAR_PRE_UPDATES = (
+    (10, 20, 50, 100), 5, 3, 8)
+PAR_DIR_TOL, PAR_MPC_TOL = 1e-7, 1e-6
 LAUNCHES_PER_UPDATE = {
     "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
     "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20},
     "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N},
     "zoh_update": {"chol_tri_inv": 6 + ZOH_N, "chol_rescue_tri_inv": ZOH_N},
     "lqr_update_and_policy": {"chol_tri_inv": 10 + 2 * ZOH_N,
-                              "chol_rescue_tri_inv": 2 * ZOH_N}}
+                              "chol_rescue_tri_inv": 2 * ZOH_N},
+    "parallel": {"chol_tri_inv": 5, "chol_rescue_tri_inv": 3},
+    "parallel_line_search": {"chol_tri_inv": 7, "chol_rescue_tri_inv": 3},
+    "parallel_unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 2}}
 WRAPPERS = {"chol_tri_inv": ops.chol_tri_inv,
             "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
@@ -116,8 +136,14 @@ IIWA_SHAPES = [(IIWA_BATCH, 7, 7), (SOLVE_BATCH, 7, 7)]
 MPC_SHAPES = [(MPC_BIG * N_HORIZON, 18, 18), (MPC_BIG * N_HORIZON, 12, 12),
               (MPC_BIG, 12, 12)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
+# the parallel recursion factors whole horizons at once: Quu and G of the
+# trot's 10 240 stages (its Schur complement is PATH_SHAPES' (10240, 12, 12)),
+# Quu of the fixed base's 25 600
+PARALLEL_RESCUE_SHAPES = [(BATCH * N_HORIZON, 12, 12),
+                          (IIWA_BATCH * IIWA_N, 7, 7)]
 RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
-                 (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES
+                 (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES \
+    + PARALLEL_RESCUE_SHAPES
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
 U0_TOL = 1e-3
 SOLVE_U0_TOL = 1e-6
@@ -439,7 +465,7 @@ def phase_kernels(gen):
         rescue_errs[((BATCH, 12, 12), dtype, "spd")] = check_rescue_against_plain(
             A, 0.0, torch.zeros(BATCH, dtype=torch.long, device="cuda"),
             f"SPD {dtype}")
-        for shape in IIWA_SHAPES:
+        for shape in IIWA_SHAPES + PARALLEL_RESCUE_SHAPES:
             rescue_errs[(shape, dtype, "spd")] = check_rescue_against_plain(
                 spd(shape, dtype, gen), 0.0,
                 torch.zeros(shape[0], dtype=torch.long, device="cuda"),
@@ -469,11 +495,13 @@ def phase_kernels(gen):
     rows = [timing_row(ops.chol_tri_inv, ops.chol_tri_inv_reference, shape,
                        errs[(shape, torch.float32)], gen, probe)
             for shape in PATH_SHAPES + MPC_SHAPES[:1]]
-    # the control Hessian of one Riccati step: trot, then fixed base
+    # the control Hessian of one Riccati step: trot, then fixed base; then
+    # the whole horizons of the parallel recursion
     rescue_rows = [timing_row(
         ops.chol_rescue_tri_inv, ops.chol_rescue_tri_inv_reference,
         shape, rescue_errs[(shape, torch.float32, "spd")], gen, probe)
-        for shape in ((BATCH, 12, 12), IIWA_SHAPES[0])]
+        for shape in ((BATCH, 12, 12), IIWA_SHAPES[0]) + tuple(
+            PARALLEL_RESCUE_SHAPES)]
     emit(phase="kernels", tolerance_f32=1e-4, tolerance_f64=1e-11,
          chol_tri_inv={"checked_shapes": len(errs) + 8, "shapes": rows},
          chol_rescue_tri_inv={"checked_cases": len(rescue_errs) + 4,
@@ -503,13 +531,13 @@ def options_for(line_search_on, kkt_error_on):
 
 
 def build(batch, n_horizon, dtype, device, seed=0, options=None,
-          contact_costs=False, t_horizon=T_HORIZON):
+          contact_costs=False, t_horizon=T_HORIZON, solver_cls=it.OCPSolver):
     """The benchmark workload through the port's API: warm-started whole-body
     trot MPC for ANYmal with one touchdown in the horizon, `batch` perturbed
     scenarios sharing one schedule. ``contact_costs`` adds a
     ``ContactForceCost`` (towards the standing forces) and a ``CoMCost``
-    (towards the standing center of mass). Returns (bs, sol_b, q_b, v_b,
-    sched)."""
+    (towards the standing center of mass); ``solver_cls`` is ``OCPSolver``
+    or ``ParNMPCSolver``. Returns (bs, sol_b, q_b, v_b, sched)."""
     m = anymal.make_model_urdf(dtype=dtype, device=device)
     foot_ids = tuple(m.frame_id(n) for n in anymal.FOOT_FRAMES)
     cm = it.ContactModel(frame_ids=foot_ids, kp=25.0, kd=10.0)
@@ -531,8 +559,8 @@ def build(batch, n_horizon, dtype, device, seed=0, options=None,
     cons = [it.JointTorquesLowerLimit(m), it.JointTorquesUpperLimit(m),
             it.FrictionCone(m, nc=4, mu=0.7)]
     options = options or options_for(False, False)
-    solver = it.OCPSolver(m, cm, cost, cons, T=t_horizon, N=n_horizon,
-                          options=options, dtype=dtype, device=device)
+    solver = solver_cls(m, cm, cost, cons, T=t_horizon, N=n_horizon,
+                        options=options, dtype=dtype, device=device)
     sched = it.schedule_at(solver, it.TrotGait(t_start=0.1), feet, T0)
     solver.set_solution(q0, torch.zeros(m.nv, dtype=dtype, device=m.device),
                         schedule=sched)
@@ -873,7 +901,8 @@ def phase_accuracy(gpu, line_search_on):
 # the fixed-base family: iiwa14, N=50
 # ---------------------------------------------------------------------------
 
-def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False):
+def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False,
+               solver_cls=it.UnconstrOCPSolver):
     """BASELINE #1 (no limits) / #2 (joint position, velocity and torque
     limits) of the JAX package (``tools/accuracy_oracle.py::run_iiwa``)
     through the port's API: iiwa14 from its URDF, the same
@@ -882,8 +911,9 @@ def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False):
     positions drawn uniformly within a quarter of their limits, all warm-
     started from the zero configuration. ``task_space`` adds a
     ``TaskSpace6DCost`` on ``ee_frame`` (a fixed pose) and a
-    ``TaskSpace3DCost`` on it (a moving target, a callable of t). Returns
-    (bs, sol_b, q_b, v_b)."""
+    ``TaskSpace3DCost`` on it (a moving target, a callable of t);
+    ``solver_cls`` is ``UnconstrOCPSolver`` or ``UnconstrParNMPCSolver``.
+    Returns (bs, sol_b, q_b, v_b)."""
     m = iiwa14.make_model_urdf(dtype=dtype, device=device)
     w = lambda x: torch.tensor(x, dtype=dtype, device=m.device)
     q_ref = w([0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0])
@@ -901,9 +931,9 @@ def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False):
                  it.TaskSpace3DCost(ee, w([10.0] * 3), w([100.0] * 3),
                                     pos_ref=moving)]
     cons = it.default_joint_limits(m) if with_limits else []
-    solver = it.UnconstrOCPSolver(m, cost, cons, T=IIWA_T, N=IIWA_N,
-                                  options=it.SolverOptions(barrier=1e-3),
-                                  dtype=dtype, device=device)
+    solver = solver_cls(m, cost, cons, T=IIWA_T, N=IIWA_N,
+                        options=it.SolverOptions(barrier=1e-3), dtype=dtype,
+                        device=device)
     solver.set_solution(w([0.0] * 7), w([0.0] * 7))
     solver.init_constraints()
     rng = np.random.default_rng(seed)
@@ -1057,11 +1087,12 @@ def standing_feet(solver):
         m, anymal.standing_configuration(m), solver.cm.frame_ids).cpu().numpy()
 
 
-def build_mpc(batch, dtype, device, options, offsets):
+def build_mpc(batch, dtype, device, options, offsets,
+              solver_cls=it.OCPSolver):
     """``build``'s workload driven by ``BatchedMPC`` over the trot with
     per-scenario phase offsets. Returns (mpc, sol_b, q_b, v_b)."""
     bs, sol_b, q_b, v_b, _ = build(batch, N_HORIZON, dtype, device,
-                                   options=options)
+                                   options=options, solver_cls=solver_cls)
     mpc = it.BatchedMPC(bs.solver, it.TrotGait(t_start=MPC_GAIT_START),
                         standing_feet(bs.solver), offsets)
     return mpc, sol_b, q_b, v_b
@@ -1444,6 +1475,374 @@ def phase_closed_loop(gpu):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the parallel-in-time Riccati recursion: ParNMPCSolver, UnconstrParNMPCSolver
+# ---------------------------------------------------------------------------
+
+def riccati_split(bs, sol_b, t, q_b, v_b, *extra, reps=PAR_REPS):
+    """The Riccati part of one update on the solver's own condensed stages,
+    host clock between synchronisations, mean of ``reps``: the serial sweep
+    and rollout, or the parallel recursion's scan (elements, suffix scan,
+    gains), rollout and switching correction (the whole
+    ``parallel_constrained`` less the other two), as the solver runs it."""
+    solver = bs.solver
+    k_sw = getattr(solver, "max_impulse_stages", 0)
+    with torch.no_grad():
+        lin = solver.linearize_all(sol_b, t, q_b, v_b, *extra)
+        term = solver.terminal_fn(sol_b, t)
+        P_t, s_t = term[2], term[1]
+        cs = condense(lin.quad, lin.T_x, lin.T_k, lin.t0, lin.F_x, lin.F_w,
+                      lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
+        dx0 = torch.zeros_like(s_t)
+        if solver.options.parallel_riccati:
+            steps = {
+                "parallel_scan": lambda: riccati_parallel.parallel_backward(
+                    P_t, s_t, cs),
+                "parallel_rollout": lambda: riccati_parallel.parallel_rollout(
+                    dx0, cs, out["parallel_scan"][2]),
+                "parallel_whole": lambda: riccati_parallel.parallel_constrained(
+                    P_t, s_t, cs, lin.sw_mask, k_sw, dx0)}
+        else:
+            steps = {
+                "serial_backward": lambda: recursion.backward_recursion(
+                    P_t, s_t, cs, lin.sw_mask),
+                "serial_rollout": lambda: recursion.forward_rollout(
+                    dx0, cs, out["serial_backward"][2])}
+        out, ms = {}, dict.fromkeys(steps, 0.0)
+        for rep in range(reps + 1):        # round 0 is a warm-up
+            for name, fn in steps.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = fn()
+                torch.cuda.synchronize()
+                if rep:
+                    ms[name] += 1e3 * (time.perf_counter() - t0) / reps
+    if "parallel_whole" in ms:
+        ms["parallel_correction"] = (ms["parallel_whole"] - ms["parallel_scan"]
+                                     - ms["parallel_rollout"])
+    return ms
+
+
+def timed_parallel_config(gpu, workload, config, make, t):
+    """One configuration of one path at full width: ms per update (mean of
+    ITERS), launches asserted, peak memory, frozen scenario-updates and the
+    Riccati split."""
+    bs, sol_b, q_b, v_b, *extra = make()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sol_b, history, wall, warmup_s = timed_updates(bs, sol_b,
+                                                   (q_b, v_b, *extra),
+                                                   ITERS, t=t)
+    launches = read_launches(config, ITERS + 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(history[-1].cost).all()):
+        raise AssertionError(f"{workload} {config}: non-finite cost")
+    frozen = int(torch.stack([s.alpha_primal <= 0 for s in history]).sum())
+    row = dict(ms_per_update=1e3 * wall / ITERS, warmup_s=warmup_s,
+               solves_per_s=int(q_b.shape[0]) * ITERS / wall,
+               launches_per_update={k: v // (ITERS + 1)
+                                    for k, v in launches.items()},
+               peak_memory_bytes=peak, frozen_scenario_updates=frozen,
+               median_kkt_error_last=float(history[-1].kkt_error.median()),
+               riccati_ms=riccati_split(bs, sol_b, t, q_b, v_b, *extra))
+    return row, launches
+
+
+def random_condensed(batch, n, nx, nu, ns, gen):
+    """Random condensed stages (B, N, ...) of the given widths, f32 on the
+    generator's device (the card): stable dynamics near identity, SPD Hessians, one stage per scenario
+    with switching rows (the trot's one touchdown) where ns > 0."""
+    kw = dict(dtype=torch.float32, device=gen.device)
+    r = lambda *s: torch.randn((batch, n) + s, generator=gen, **kw)
+
+    def spd(k, m):
+        X = r(k, k)
+        return X @ X.mT / k + m * torch.eye(k, **kw)
+
+    cs = CondensedStage(
+        A=0.98 * torch.eye(nx, **kw) + (0.05 / nx ** 0.5) * r(nx, nx),
+        B=r(nx, nu) / nx ** 0.5, xres=0.01 * r(nx), lx=r(nx), lu=r(nu),
+        Qxx=spd(nx, 0.5), Qxu=0.1 * r(nx, nu) / nx ** 0.5, Quu=spd(nu, 0.5),
+        Wx=r(0, nx), Wk=r(0, nu), w0=r(0), Cx=r(ns, nx), Cu=r(ns, nu),
+        h=0.1 * r(ns))
+    sw = torch.zeros((batch, n, ns), **kw)
+    if ns:
+        sw[:, n // 2, :3] = 1.0
+    X = torch.randn((batch, nx, nx), generator=gen, **kw)
+    P_t = X @ X.mT / nx + torch.eye(nx, **kw)
+    return cs, sw, P_t, torch.randn((batch, nx), generator=gen, **kw)
+
+
+def traced_device_ms(fn):
+    """Milliseconds the device spends in the kernels of one call of fn, from
+    a ``torch.profiler`` trace: the sum over the kernel events alone (an
+    operator's row repeats the time of the kernels it launched)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return 1e-3 * total
+
+
+def crossover(gen):
+    """Serial against parallel Riccati alone (backward + rollout, and the
+    parallel path's switching correction) at B=512, f32, for each N: host
+    clock between synchronisations, mean of PAR_REPS after a warm-up, the
+    device's own time of one call (its share of the host-clock time is the
+    device's busy share), and the largest |du| difference between the
+    two."""
+    rows = []
+    for workload, nx, nu, ns, k_sw in (("trot", 36, 12, 12, 4),
+                                       ("iiwa14", 14, 7, 0, 0)):
+        for n in PAR_CROSSOVER_N:
+            cs, sw, P_t, s_t = random_condensed(BATCH, n, nx, nu, ns, gen)
+            dx0 = torch.zeros_like(s_t)
+
+            def serial():
+                _, _, pols = recursion.backward_recursion(P_t, s_t, cs, sw)
+                return recursion.forward_rollout(dx0, cs, pols)[1]
+
+            def parallel():
+                return riccati_parallel.parallel_constrained(
+                    P_t, s_t, cs, sw, k_sw, dx0)[3]
+
+            ms = {}
+            with torch.no_grad():
+                for name, fn in (("serial", serial), ("parallel", parallel)):
+                    du = fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(PAR_REPS):
+                        fn()
+                    torch.cuda.synchronize()
+                    ms[name] = 1e3 * (time.perf_counter() - t0) / PAR_REPS
+                    ms[name + "_du"] = du
+                    ms[name + "_device"] = traced_device_ms(fn)
+                torch.cuda.reset_peak_memory_stats()
+                parallel()
+                peak = torch.cuda.max_memory_allocated()
+            rows.append(dict(
+                workload=workload, horizon=n, nx=nx, nu=nu, ns=ns,
+                serial_ms=ms["serial"], parallel_ms=ms["parallel"],
+                speedup=ms["serial"] / ms["parallel"],
+                serial_device_ms=ms["serial_device"],
+                parallel_device_ms=ms["parallel_device"],
+                max_abs_du_diff=float((ms["serial_du"]
+                                       - ms["parallel_du"]).abs().max()),
+                parallel_peak_memory_bytes=peak))
+    return rows
+
+
+def lu_backends(gen):
+    """The combination's LU solve at the trot's shape ((B N) systems of
+    36 x 36, 73 right-hand sides, f32) under PyTorch's default backend choice
+    and with cuSOLVER preferred (what ``riccati/parallel.py`` does around
+    each call): ms per factor-and-solve (host clock around 5 calls ending in a
+    synchronisation) and the host synchronisations each call makes, counted
+    by ``torch.profiler``."""
+    n, b = 36, BATCH * N_HORIZON
+    M = torch.eye(n, device="cuda") + 0.1 * torch.randn(
+        (b, n, n), generator=gen, device="cuda")
+    R = torch.randn((b, n, 2 * n + 1), generator=gen, device="cuda")
+    call = lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(M)[:2], R)
+    backends = torch.backends.cuda
+    before = backends.preferred_linalg_library()
+    out = {}
+    try:
+        for lib in ("default", "cusolver"):
+            backends.preferred_linalg_library(lib)
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 5
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            # (the closing torch.cuda.synchronize is a cudaDeviceSynchronize)
+            syncs = sum(e.count for e in prof.key_averages()
+                        if e.key == "cudaStreamSynchronize")
+            out[lib] = {"ms": ms, "host_syncs_per_call": syncs}
+    finally:
+        backends.preferred_linalg_library(before)
+    return out
+
+
+def f64_direction_gate(workload):
+    """The card's f64 parallel direction against its f64 serial direction
+    on the first CPU_SCENARIOS scenarios: the largest |du| difference."""
+    du = {}
+    for par in (False, True):
+        if workload == "trot":
+            bs, sol_b, q_b, v_b, sched = build(
+                CPU_SCENARIOS, N_HORIZON, torch.float64, "cuda",
+                solver_cls=it.ParNMPCSolver if par else it.OCPSolver)
+            extra, t = (sched,), T0
+        else:
+            bs, sol_b, q_b, v_b = build_iiwa(
+                CPU_SCENARIOS, torch.float64, "cuda", True,
+                solver_cls=(it.UnconstrParNMPCSolver if par
+                            else it.UnconstrOCPSolver))
+            extra, t = (), IIWA_T0
+        du[par] = bs.solver._direction(sol_b, t, q_b, v_b, *extra)[7]
+    err = float((du[True] - du[False]).abs().max())
+    if not err <= PAR_DIR_TOL:
+        raise AssertionError(f"{workload}: f64 parallel direction differs "
+                             f"from the serial one by {err:.3e} (du)")
+    return err, float(du[False].abs().max())
+
+
+def per_scenario_mpc(dtype, steps, pre_updates=0, perturbed=False):
+    """BatchedMPC with per-scenario phases at B=512, the main-path options,
+    on both paths from one start: the shared warm start, or the iterate of
+    ``pre_updates`` serial updates on the window at t=0. ``perturbed`` adds
+    a third run, the serial path from the same start times (1 + 1e-13 noise),
+    which shows how far round-off alone moves u0. Returns, per run, u0 of each
+    step and the frozen scenario-steps, and the launches of all runs."""
+    out, total = {}, dict.fromkeys(WRAPPERS, 0)
+    offsets = random_offsets(BATCH)
+    runs = [("serial", it.OCPSolver), ("parallel", it.ParNMPCSolver)]
+    runs += [("serial_perturbed", it.OCPSolver)] if perturbed else []
+    start = None
+    for name, cls in runs:
+        mpc, sol_b, q_b, v_b = build_mpc(BATCH, dtype, "cuda",
+                                         options_for(False, False), offsets,
+                                         solver_cls=cls)
+        if start is None:
+            sched = mpc.schedules_at(0.0)
+            for _ in range(pre_updates):
+                sol_b, _ = mpc.bs.update(sol_b, 0.0, q_b, v_b, sched)
+            start = sol_b
+        sol_b = start
+        if name == "serial_perturbed":
+            gen = torch.Generator(device=q_b.device).manual_seed(1)
+            sol_b = sol_b.map(lambda x: x * (1.0 + 1e-13 * torch.randn(
+                x.shape, generator=gen, dtype=x.dtype, device=x.device))
+                if x.is_floating_point() else x)
+        reset_launches()
+        u0s, frozen = [], 0
+        for k in range(steps):
+            sol_b, u0, stats = mpc.step(MPC_DT * k, sol_b, q_b, v_b)
+            u0s.append(u0)
+            frozen += int((stats.alpha_primal <= 0).sum())
+        launches = read_launches(
+            "parallel" if name == "parallel" else "plain", steps)
+        total = {k: total[k] + launches[k] for k in total}
+        out[name] = (u0s, frozen)
+        del mpc, sol_b
+    return out, total
+
+
+def u0_gap(out, a, b):
+    """Largest |u0| difference between two runs of ``per_scenario_mpc``."""
+    return max(float((x - y).abs().max())
+               for x, y in zip(out[a][0], out[b][0]))
+
+
+def phase_parallel_riccati(gpu, gen):
+    """ParNMPCSolver / UnconstrParNMPCSolver through BatchedSolver at full
+    width beside the serial solvers, in one run: the trot (N=20, B=512, f32,
+    the main path's options and the defaults) and iiwa14 #1 / #2 (N=50,
+    B=512, f32, the defaults); the crossover in N; the f64 gates; the f32
+    accuracy; the frozen counts of per-scenario MPC on both paths. Returns
+    the launches of the counted runs."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    trot = lambda opts, cls: lambda: build(BATCH, N_HORIZON, torch.float32,
+                                           "cuda", options=opts,
+                                           solver_cls=cls)
+    iiwa = lambda limits, cls: lambda: build_iiwa(
+        IIWA_BATCH, torch.float32, "cuda", limits, solver_cls=cls)
+    cases = []
+    for label, opts in (("main_path", options_for(False, False)),
+                        ("defaults", options_for(True, True))):
+        search = "_line_search" if opts.use_line_search else ""
+        cases += [("trot", label, "serial", "plain" if not search
+                   else "line_search", trot(opts, it.OCPSolver), T0),
+                  ("trot", label, "parallel", "parallel" + search,
+                   trot(opts, it.ParNMPCSolver), T0)]
+    for limits in (False, True):
+        workload = iiwa_workload(limits)
+        cases += [(workload, "defaults", "serial", "unconstr",
+                   iiwa(limits, it.UnconstrOCPSolver), IIWA_T0),
+                  (workload, "defaults", "parallel", "parallel_unconstr",
+                   iiwa(limits, it.UnconstrParNMPCSolver), IIWA_T0)]
+    for workload, label, path, config, make, t in cases:
+        row, launches = timed_parallel_config(gpu, workload, config, make, t)
+        total = {k: total[k] + launches[k] for k in total}
+        emit(phase="parallel_riccati", part="update", workload=workload,
+             options=label, path=path, gpu=gpu, batch=BATCH,
+             horizon=IIWA_N if workload != "trot" else N_HORIZON,
+             dtype="float32", iters=ITERS, **row)
+        torch.cuda.empty_cache()
+
+    emit(phase="parallel_riccati", part="crossover", gpu=gpu, batch=BATCH,
+         dtype="float32", reps=PAR_REPS, rows=crossover(gen),
+         lu_shape=[BATCH * N_HORIZON, 36, 36], lu_backends=lu_backends(gen))
+
+    # f64 gates: the direction on the card, then BatchedMPC per scenario.
+    # From the shared warm start the windows' first Newton systems are so ill
+    # conditioned that round-off alone moves u0 by more than the gate (the
+    # perturbed serial run shows by how much), so the gate starts both paths
+    # from PAR_PRE_UPDATES serial updates on the window at t=0, as
+    # tests/test_torch_mpc.py does; the gap from the warm start is reported
+    gates = {w: f64_direction_gate(w) for w in ("trot", "iiwa14_limits")}
+    mpc, launches = per_scenario_mpc(torch.float64, PAR_MPC_STEPS,
+                                     pre_updates=PAR_PRE_UPDATES,
+                                     perturbed=True)
+    total = {k: total[k] + launches[k] for k in total}
+    mpc_err = u0_gap(mpc, "serial", "parallel")
+    if not mpc_err <= PAR_MPC_TOL:
+        raise AssertionError(f"BatchedMPC f64: parallel u0 differs from the "
+                             f"serial u0 by {mpc_err:.3e}")
+    cold, launches = per_scenario_mpc(torch.float64, PAR_MPC_STEPS,
+                                      perturbed=True)
+    total = {k: total[k] + launches[k] for k in total}
+    mpc_f32, launches = per_scenario_mpc(torch.float32, MPC_LS_STEPS)
+    total = {k: total[k] + launches[k] for k in total}
+    frozen_f32 = {k: v[1] for k, v in mpc_f32.items()}
+
+    # f32 on the card after 5 updates against the port's f64 on the CPU
+    u0 = {}
+    for dtype, device in ((torch.float32, "cuda"), (torch.float64, "cpu")):
+        bs, sol_b, q_b, v_b, sched = build(
+            BATCH, N_HORIZON, dtype, device, options=options_for(False, False),
+            solver_cls=it.ParNMPCSolver)
+        n = CPU_SCENARIOS
+        sol_b = sol_b.map(lambda x: x[:n])
+        for _ in range(5):
+            sol_b, _ = bs.update(sol_b, T0, q_b[:n], v_b[:n], sched)
+        u0[device] = sol_b.u[:, 0].double().cpu()
+    acc = float((u0["cuda"] - u0["cpu"]).abs().max())
+    if not acc <= U0_TOL:
+        raise AssertionError(f"parallel f32 u0 vs f64 CPU: {acc:.3e} above "
+                             f"{U0_TOL:g}")
+    emit(phase="parallel_riccati", part="gates", gpu=gpu,
+         f64_direction_max_abs_du_diff={k: v[0] for k, v in gates.items()},
+         f64_direction_du_scale={k: v[1] for k, v in gates.items()},
+         direction_tolerance=PAR_DIR_TOL, direction_scenarios=CPU_SCENARIOS,
+         batched_mpc_f64_steps=PAR_MPC_STEPS,
+         batched_mpc_f64_pre_updates=PAR_PRE_UPDATES,
+         batched_mpc_f64_max_abs_u0_diff=mpc_err,
+         batched_mpc_tolerance=PAR_MPC_TOL,
+         batched_mpc_f64_round_off_sensitivity=u0_gap(
+             mpc, "serial", "serial_perturbed"),
+         from_warm_start_max_abs_u0_diff=u0_gap(cold, "serial", "parallel"),
+         from_warm_start_round_off_sensitivity=u0_gap(
+             cold, "serial", "serial_perturbed"),
+         frozen_scenario_steps_f64={k: v[1] for k, v in mpc.items()},
+         frozen_scenario_steps_f32={"steps": MPC_LS_STEPS, "batch": BATCH,
+                                    **frozen_f32},
+         accuracy_f32_vs_f64_cpu=acc, accuracy_tolerance=U0_TOL)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1482,6 +1881,8 @@ def main():
     for phase in (phase_batched_mpc, phase_standing, phase_closed_loop):
         phase_launches = phase(gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
+    phase_launches = phase_parallel_riccati(gpu, gen)
+    launches = {k: launches[k] + phase_launches[k] for k in launches}
 
     print(gpu)
     kernels = []

@@ -4,16 +4,18 @@ Same sub-packages and module names as the JAX package; every module's
 docstring names its twin file. The port imports ``torch`` and numpy only.
 Entry points take an explicit ``device`` and ``dtype``, default to
 ``device="cuda"`` and raise when there is no card. Ported so far: both solver
-families with a serial Riccati sweep, the whole-body ``OCPSolver`` (Newton
+families with the serial Riccati sweep or the parallel-in-time recursion
+(``ParNMPCSolver``, ``UnconstrParNMPCSolver``), the whole-body ``OCPSolver`` (Newton
 update with the filter line search and the KKT residual, ``solve`` with
 barrier continuation, the LQR policy, impulse cost and impulse constraints)
 and the fixed-base ``UnconstrOCPSolver``, ``BatchedSolver`` over either (on a
 schedule shared by the batch or one per scenario), the MPC drivers (``MPC``
 with ``step_with_policy``, ``BatchedMPC`` with per-scenario gait phases), the
 batched schedule discretizer (host C++ built at first use), the pinned-contact
-simulator, every cost and constraint component, and everything below them,
-down to the hand-written CUDA kernel behind ``ops.chol_tri_inv`` and
-``ops.chol_rescue_tri_inv``.
+simulator, every cost and constraint component, the checkpoint, logging and
+benchmark utilities, and everything below them, down to the hand-written CUDA
+kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``. Of the
+twin's public names only ``make_mesh`` (multi-device) is not ported yet.
 """
 from .constraints.components import (
     ConstraintComponent, ContactNormalForce, FrictionCone,
@@ -32,20 +34,25 @@ from .hybrid.schedule import (ContactSequence, DiscreteEvent, HorizonSchedule,
 from .ocp.data import Solution, zero_solution
 from .parallel.batch import BatchedSolver, batch_solution
 from .riccati.recursion import LQRPolicy
-from .robot.contact import ContactModel
-from .robot.model import ModelBuilder, RobotModel, difference, integrate
+from .robot.contact import ContactModel, ContactStatus
+from .robot.model import (ModelBuilder, RobotModel, difference, integrate,
+                          random_configuration)
 from .robot.urdf import load_urdf
 from .solver.mpc import MPC, BatchedMPC, TrotGait, schedule_at
 from .solver.ocp_solver import OCPSolver
 from .solver.options import SolverOptions
+from .solver.parnmpc_solver import ParNMPCSolver, UnconstrParNMPCSolver
 from .solver.unconstr_ocp_solver import UnconstrOCPSolver
+from .utils.benchmarker import benchmark_convergence, benchmark_solver
+from .utils.checkpoint import load_solution, save_solution
 from .utils.simulation import pinned_contact_step
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "ModelBuilder", "RobotModel", "difference", "integrate", "load_urdf",
-    "ContactModel", "CostComponent", "ConfigurationSpaceCost", "ImpulseCost",
+    "ModelBuilder", "RobotModel", "difference", "integrate",
+    "random_configuration", "load_urdf", "ContactModel", "ContactStatus",
+    "CostComponent", "ConfigurationSpaceCost", "ImpulseCost",
     "TaskSpace3DCost", "TaskSpace6DCost", "CoMCost", "ContactForceCost",
     "ConstraintComponent", "FrictionCone", "ContactNormalForce",
     "JointPositionLowerLimit", "JointPositionUpperLimit",
@@ -56,7 +63,9 @@ __all__ = [
     "ContactSequence", "DiscreteEvent", "HorizonSchedule", "static_schedule",
     "stack_schedules", "discretize_batch",
     "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
-    "OCPSolver", "UnconstrOCPSolver", "TrotGait", "schedule_at",
-    "MPC", "BatchedMPC", "BatchedSolver", "batch_solution",
-    "pinned_contact_step",
+    "OCPSolver", "UnconstrOCPSolver", "ParNMPCSolver", "UnconstrParNMPCSolver",
+    "TrotGait", "schedule_at", "MPC", "BatchedMPC", "BatchedSolver",
+    "batch_solution", "pinned_contact_step",
+    "benchmark_convergence", "benchmark_solver", "load_solution",
+    "save_solution",
 ]

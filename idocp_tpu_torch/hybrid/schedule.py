@@ -8,10 +8,13 @@ copy). The discretizer emits a fixed grid of N stages with per-stage masks:
   - a lift event is just a change of the per-stage contact mask;
   - the stage *ending* at an impulse carries the switching-constraint mask.
 
-The numbers of impulse stages and of stages with switching rows are real
-fields of ``HorizonSchedule`` (``n_impulse``, ``n_switching``), set by every
-constructor while the masks are still numpy, so the solver validates a schedule
-without reading anything back from the device.
+The numbers of impulse stages and of stages with switching rows are kept
+beside the fields, as the twin keeps them: an attribute outside
+``dataclasses.fields`` that every constructor sets while the masks are still
+numpy, so the solver validates a schedule without reading anything back from
+the device. ``dataclasses.replace`` does not copy it, so a schedule whose
+masks were replaced recounts them from the masks with one device read, at its
+first ``host_counts`` call.
 
 A schedule is either shared by a batch of scenarios (fields (N, ...)) or holds
 one schedule per scenario (fields (B, N, ...), e.g. from
@@ -45,13 +48,19 @@ class HorizonSchedule:
     imp_contact: torch.Tensor     # (N, nc) bool: impacting contacts
     sw_contact: torch.Tensor      # (N, nc) bool: switching constraint rows
     sw_pos: torch.Tensor          # (N, nc, 3) planned footholds
-    n_impulse: int                # stages carrying an impulse map
-    n_switching: int              # stages with any switching-constraint row
 
     def host_counts(self):
-        """(n_impulse, n_switching) as host values (a batched schedule's: the
-        max over scenarios); both bound the solver's impulse-slot budget."""
-        return self.n_impulse, self.n_switching
+        """(n_impulse, n_switching) as host values: the number of stages
+        carrying an impulse map and the number of stages with any switching
+        row (a batched schedule's: the max over scenarios); both bound the
+        solver's impulse-slot budget. Taken by the constructors while the
+        masks are numpy; a schedule without them (``dataclasses.replace``,
+        ``scenario``) counts its masks once, with one device read."""
+        if "_counts" not in self.__dict__:
+            masks = torch.stack([self.imp_mask, self.sw_contact.any(dim=-1)])
+            masks = masks.cpu().numpy()
+            _with_counts(self, count_stages(masks[0], masks[1][..., None]))
+        return self._counts
 
     @property
     def batched(self) -> bool:
@@ -60,20 +69,17 @@ class HorizonSchedule:
 
     def scenario(self, b: int) -> "HorizonSchedule":
         """Scenario b of a batched schedule, as a one-scenario schedule (its
-        own counts are read from its masks)."""
+        own counts are read from its masks when they are asked for)."""
         if not self.batched:
             raise ValueError("scenario() needs a batched schedule")
-        kw = {name: getattr(self, name)[b] for name in TENSOR_FIELDS}
-        n_imp, n_sw = count_stages(kw["imp_mask"].cpu().numpy(),
-                                   kw["sw_contact"].cpu().numpy())
-        return dataclasses.replace(self, **kw, n_impulse=n_imp,
-                                   n_switching=n_sw)
+        return HorizonSchedule(**{name: getattr(self, name)[b]
+                                  for name in TENSOR_FIELDS})
 
     def repeat_scenarios(self, k: int) -> "HorizonSchedule":
         """A batched schedule with each scenario repeated k times in a row
         ((B, ...) -> (B k, ...), scenario b at rows b k ... b k + k - 1); the
         counts stay."""
-        return dataclasses.replace(self, **{
+        return self._carry(**{
             name: torch.repeat_interleave(getattr(self, name), k, dim=0)
             for name in TENSOR_FIELDS})
 
@@ -83,7 +89,22 @@ class HorizonSchedule:
             x = getattr(self, name)
             kw[name] = x.to(device=device,
                             dtype=dtype if x.is_floating_point() else None)
-        return dataclasses.replace(self, **kw)
+        return self._carry(**kw)
+
+    def _carry(self, **fields) -> "HorizonSchedule":
+        """The schedule with ``fields`` replaced by tensors of the same masks
+        (moved or repeated), the counts carried over where they are known."""
+        out = HorizonSchedule(**fields)
+        counts = self.__dict__.get("_counts")
+        return out if counts is None else _with_counts(out, counts)
+
+
+def _with_counts(sched: HorizonSchedule, counts) -> HorizonSchedule:
+    """Attach the host-side counts (n_impulse, n_switching) outside the
+    dataclass fields, so that ``dataclasses.replace`` drops them."""
+    counts = tuple(int(c) for c in counts)
+    object.__setattr__(sched, "_counts", counts)
+    return sched
 
 
 def count_stages(imp_mask, sw_contact):
@@ -100,12 +121,12 @@ def stack_schedules(schedules) -> HorizonSchedule:
     """B one-scenario schedules -> one batched schedule (fields (B, N, ...));
     the counts are the max over the scenarios."""
     schedules = list(schedules)
-    return dataclasses.replace(
-        schedules[0],
-        **{name: torch.stack([getattr(s, name) for s in schedules], dim=0)
-           for name in TENSOR_FIELDS},
-        n_impulse=max(s.n_impulse for s in schedules),
-        n_switching=max(s.n_switching for s in schedules))
+    counts = [s.host_counts() for s in schedules]
+    return _with_counts(
+        HorizonSchedule(**{
+            name: torch.stack([getattr(s, name) for s in schedules], dim=0)
+            for name in TENSOR_FIELDS}),
+        (max(c[0] for c in counts), max(c[1] for c in counts)))
 
 
 def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
@@ -118,12 +139,11 @@ def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
     flt = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
                                     dtype=dtype, device=device)
     boo = lambda x: torch.as_tensor(np.asarray(x, dtype=bool), device=device)
-    return HorizonSchedule(
+    return _with_counts(HorizonSchedule(
         dt=flt(dt), t_offset=flt(t_offset),
         contact_active=boo(contact_active), contact_pos=flt(contact_pos),
         imp_mask=boo(imp_mask), imp_contact=boo(imp_contact),
-        sw_contact=boo(sw_contact), sw_pos=flt(sw_pos),
-        n_impulse=n_imp, n_switching=n_sw)
+        sw_contact=boo(sw_contact), sw_pos=flt(sw_pos)), (n_imp, n_sw))
 
 
 @dataclasses.dataclass

@@ -204,6 +204,30 @@ def difference_jacobian(model: RobotModel, d):
     return J
 
 
+def random_configuration(model: RobotModel, generator: torch.Generator,
+                         dtype=None):
+    """Lie-group-aware random configuration (nq,): a free joint gets a
+    position uniform in [-1, 1]^3 and a unit quaternion of normalized normal
+    draws, a 1-dof joint a value uniform within its limits clipped to
+    [-pi, pi]. ``generator`` is a ``torch.Generator`` on the model's device;
+    its stream is not ``jax.random``'s, so the twin's values are not
+    reproduced, only its distribution."""
+    kw = dict(dtype=dtype or model.dtype, device=model.device)
+    draw = lambda n: torch.rand(n, generator=generator, **kw)
+    q = []
+    for i, jt in enumerate(model.joint_types):
+        qo = model.q_offset[i]
+        if jt == FREE:
+            q.append(2.0 * draw(3) - 1.0)
+            q.append(lie.quat_normalize(
+                torch.randn(4, generator=generator, **kw)))
+        else:
+            lo = torch.clamp(model.q_min[qo:qo + 1].to(kw["dtype"]), min=-np.pi)
+            hi = torch.clamp(model.q_max[qo:qo + 1].to(kw["dtype"]), max=np.pi)
+            q.append(lo + (hi - lo) * draw(1))
+    return torch.cat(q, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Model construction helper
 # ---------------------------------------------------------------------------

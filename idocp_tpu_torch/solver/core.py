@@ -3,16 +3,17 @@
 
 Twin of ``idocp_tpu/solver/core.py`` (``make_direction_fn``,
 ``make_update_fn``, ``kkt_error_from_lin``, ``make_kkt_error_fn``, for both
-stage families; serial Riccati only). The twin is written for one scenario
-and batched by vmap; here every tensor carries the scenario axis B first,
-every per-scenario scalar of the twin (step sizes, the trust cap, the
-finiteness flag, costs, norms, the accepted trial) is a (B,) tensor reduced
-over the non-batch axes only, and nothing inside ``update`` reads a value
-back to the host. The optional filter line search evaluates its whole (B, K)
-trial grid in one batched pass (line_search.py). The closures take whatever
-the solver's stage functions take after the measured state (the contact
-family's schedule, nothing for the fixed-base family) as trailing arguments,
-as the twin's ``*extra``. A schedule with one row per scenario
+stage families; the serial Riccati sweep, or the parallel-in-time recursion
+with its switching correction when ``options.parallel_riccati``). The twin is
+written for one scenario and batched by vmap; here every tensor carries the
+scenario axis B first, every per-scenario scalar of the twin (step sizes, the
+trust cap, the finiteness flag, costs, norms, the accepted trial) is a (B,)
+tensor reduced over the non-batch axes only, and nothing inside ``update``
+reads a value back to the host. The optional filter line search evaluates its
+whole (B, K) trial grid in one batched pass (line_search.py). The closures
+take whatever the solver's stage functions take after the measured state (the
+contact family's schedule, nothing for the fixed-base family) as trailing
+arguments, as the twin's ``*extra``. A schedule with one row per scenario
 (``HorizonSchedule.batched``) is repeated for each trial of the grid; a shared
 one is passed as it is.
 """
@@ -29,6 +30,7 @@ from ..hybrid.schedule import HorizonSchedule
 from ..ocp.condensing import condense, dual_rhs
 from ..ocp.data import Solution, TensorStruct
 from ..ocp.state_equation import contact_solve_T
+from ..riccati import parallel as riccati_parallel
 from ..riccati import recursion
 from ..ocp.stage import chain_to_x
 from ..robot import model as model_mod
@@ -110,14 +112,18 @@ def _expand_dual_all(model, w_split, lin, dx, du, dwe, lam_new, dxi):
 
 
 def make_direction_fn(model, options, linearize_all: Callable,
-                      terminal_fn: Callable):
+                      terminal_fn: Callable, max_sw_stages: int = 0):
     """Newton-direction computation shared by the update and the LQR-policy
     getter: linearize -> condense -> Riccati -> rollout -> expand-primal.
 
     linearize_all(sol, t, q_meas, v_meas, *extra, named_blocks) -> StageLin
         with leading axes (B, N);
     terminal_fn(sol, t) -> (val, l_cond, H, barrier, g_term, Jz_term, l_raw)
-        with leading axis B.
+        with leading axis B;
+    max_sw_stages: the number of stages per scenario that can carry
+        switching rows, which sizes the switching correction of the parallel
+        recursion (``options.parallel_riccati``); its s is the corrected
+        costate offset and its policies the unconstrained ones, as the twin's.
     """
 
     @torch.no_grad()
@@ -134,10 +140,14 @@ def make_direction_fn(model, options, linearize_all: Callable,
 
         dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
         dx0 = torch.cat([dq0, v_meas - sol.v[:, 0]], dim=-1)
-        P, s, pols = recursion.backward_recursion(
-            term_H, term_l, cs, lin.sw_mask,
-            reg=options.riccati_regularization)
-        dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
+        reg = options.riccati_regularization
+        if options.parallel_riccati:
+            P, s, dx, du, dxi, pols = riccati_parallel.parallel_constrained(
+                term_H, term_l, cs, lin.sw_mask, max_sw_stages, dx0, reg=reg)
+        else:
+            P, s, pols = recursion.backward_recursion(
+                term_H, term_l, cs, lin.sw_mask, reg=reg)
+            dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
         dwe = _mv(cs.Wx, dx[:, :-1]) + _mv(cs.Wk, du) + cs.w0
         return lin, term, cs, facs, P, s, dx, du, dxi, dwe, pols
 

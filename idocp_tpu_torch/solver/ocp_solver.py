@@ -140,7 +140,8 @@ class OCPSolver(_SolverCommon):
             lin = lambda *a, **kw: self.linearize_all(*a, options=options, **kw)
             term = lambda sol, t: self.terminal_fn(sol, t, options=options)
             ev = lambda *a: self.evaluate_all(*a, options=options)
-            direction = make_direction_fn(self.model, options, lin, term)
+            direction = make_direction_fn(self.model, options, lin, term,
+                                          self.max_impulse_stages)
             w_split = self.model.nv + self.cm.max_dimf     # w_e = (a, f)
             self._fn_cache[options] = {
                 "update": make_update_fn(self.model, options, direction,

@@ -1,8 +1,6 @@
 """Solver options (twin of ``idocp_tpu/solver/options.py``): one frozen,
 hashable dataclass with the twin's fields and defaults, bar ``scan_unroll``
-(the Riccati sweep is a Python loop here). An option whose code is not ported
-is accepted only at the value that leaves it off, so a configuration written
-for the JAX package is either run as written or refused."""
+(the serial Riccati sweep is a Python loop here)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,7 +19,8 @@ class SolverOptions:
     max_iterations: int = 20           # solve() Newton cap
     kkt_tol: float = 1.0e-7            # solve() convergence threshold
     riccati_regularization: float = 0.0
-    # Parallel-in-time Riccati: not ported, must stay off.
+    # Parallel-in-time Riccati (riccati/parallel.py) in place of the serial
+    # sweep; the ParNMPC drivers force it on.
     parallel_riccati: bool = False
     # Filter line search ON by default: the f32 whole-body solve has no
     # globalization safety net without it.
@@ -41,9 +40,3 @@ class SolverOptions:
     # per control period and ignores it: set False there; stats.kkt_error then
     # reports the Newton direction norm as a cheap convergence proxy.
     compute_kkt_error: bool = True
-
-    def __post_init__(self):
-        if self.parallel_riccati:
-            raise NotImplementedError(
-                "SolverOptions.parallel_riccati=True is not ported to "
-                "idocp_tpu_torch yet")

@@ -197,8 +197,10 @@ def test_default_options_and_warm_start_agree(problem):
             assert getattr(t_opts, f.name) == getattr(j_opts, f.name), f.name
     assert {f.name for f in dataclasses.fields(t_opts)} == {
         f.name for f in dataclasses.fields(j_opts)} - {"scan_unroll"}
-    with pytest.raises(NotImplementedError):
-        it.SolverOptions(parallel_riccati=True)
+    # the parallel-in-time recursion is ported: the option is taken as the
+    # twin takes it
+    assert it.SolverOptions(parallel_riccati=True).parallel_riccati \
+        == SolverOptions(parallel_riccati=True).parallel_riccati is True
     # set_solution sizes the filter memory, init_constraints adds the
     # impulse rows on all N + 1 stages
     _assert_same(problem["j_solver"].solution, problem["t_solver"].solution)
