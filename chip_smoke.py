@@ -19,7 +19,14 @@ simulator in f64 and f32 with the LQR policy against a zero-order hold. The
 parallel-in-time Riccati recursion (``ParNMPCSolver``,
 ``UnconstrParNMPCSolver``) beside the serial solvers on the trot and iiwa14 at
 full width, the crossover in N of the recursion alone, and its f64 gates
-(direction and per-scenario ``BatchedMPC`` against the serial path). It builds
+(direction and per-scenario ``BatchedMPC`` against the serial path). The
+batch split over processes at world size 1 (``distributed.initialize`` with
+NCCL, the pod mesh, ``make_mesh``): the trot update through the mesh bit for
+bit against the meshless one, ``mean_kkt_error`` through NCCL, ``BatchedMPC``
+at B=4096 with and without the mesh, ``scaling_report``. The four examples
+at their twins' sizes, and ``robot/dynamics.py`` at 4096 random
+configurations (``mass_matrix`` against ``crba``, the card against the CPU).
+It builds
 the CUDA kernel from the sources in this checkout, holds both of its entry
 points (``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
 versions on the card, shows that every path went through them (launch counts,
@@ -28,19 +35,27 @@ own f64 runs on the CPU. Every failure raises, so the process then exits
 non-zero. It needs one CUDA device and no network. One JSON object per line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import ctypes
+import dataclasses
 import importlib
+import io
 import json
 import re
+import socket
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 import idocp_tpu_torch as it
 from idocp_tpu_torch import ops
+from idocp_tpu_torch.examples import (anymal_mpc_trot, anymal_ocp_benchmark,
+                                      iiwa14_ocp_benchmark,
+                                      iiwa14_parnmpc_benchmark)
 from idocp_tpu_torch.hybrid import native
 from idocp_tpu_torch.hybrid.schedule import TENSOR_FIELDS as SCHEDULE_FIELDS
 from idocp_tpu_torch.hybrid.schedule import schedule_from_arrays
@@ -48,9 +63,10 @@ from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.ocp.condensing import condense
 from idocp_tpu_torch.ocp.data import CondensedStage
 from idocp_tpu_torch.ops import _build
+from idocp_tpu_torch.parallel import distributed
 from idocp_tpu_torch.riccati import parallel as riccati_parallel
 from idocp_tpu_torch.riccati import recursion
-from idocp_tpu_torch.robot import kinematics
+from idocp_tpu_torch.robot import dynamics, kinematics
 from idocp_tpu_torch.robot import model as model_mod
 
 # Published peaks of one H100 SXM, used for the bound of each kernel.
@@ -107,6 +123,28 @@ ZOH_N, ZOH_T, ZOH_PERIODS, ZOH_SUBSTEPS = 8, 0.4, 5, 4
 PAR_CROSSOVER_N, PAR_REPS, PAR_MPC_STEPS, PAR_PRE_UPDATES = (
     (10, 20, 50, 100), 5, 3, 8)
 PAR_DIR_TOL, PAR_MPC_TOL = 1e-7, 1e-6
+# The batch split over processes on one card (world size 1, NCCL): the trot
+# update through make_mesh against the meshless one in turns (DIST_TURNS
+# rounds of DIST_UPDATES timed updates), BatchedMPC at MPC_BIG with and
+# without the mesh, scaling_report on the trot step.
+DIST_TURNS, DIST_UPDATES, DIST_MPC_STEPS, DIST_SCALING_ITERS = 4, 5, 5, 5
+# robot/dynamics.py at 4096 random configurations: mass_matrix against crba
+# (f64 absolute, f32 relative to the largest entry), the card's f64 against
+# the CPU's (relative to 1 + the largest entry), each function's ms
+DYN_BATCH, DYN_REPS, DYN_TOL_F64, DYN_TOL_F32 = 4096, 5, 1e-10, 1e-4
+# The examples: each update launches what the configuration of the same
+# options does (the standing OCP and the trot: the 8-trial search, 26 + 20;
+# iiwa14: 0 + 50; its ParNMPC: 0 + 2); the ANYmal benchmark's closing
+# kkt_error adds the 4 stage / slot factorizations of one linearization, the
+# LQR policy of step_with_policy the 4 + N and N of a direction without the
+# grid (counted on the CPU with the plain versions). One KKT residual
+# (kkt_error, mean_kkt_error) factors what one linearization does.
+KKT_LAUNCHES = {
+    "trot": {"chol_tri_inv": 4, "chol_rescue_tri_inv": 0},
+    "iiwa14": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 0}}
+TROT_POLICY_STEPS = 40
+TROT_POLICY_LAUNCHES = {"chol_tri_inv": 4 + N_HORIZON,
+                        "chol_rescue_tri_inv": N_HORIZON}
 LAUNCHES_PER_UPDATE = {
     "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
     "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20},
@@ -1843,6 +1881,336 @@ def phase_parallel_riccati(gpu, gen):
     return total
 
 
+# ---------------------------------------------------------------------------
+# multi-process scale-out on the card: torch.distributed at world size 1
+# ---------------------------------------------------------------------------
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tensor_fields(obj):
+    """The tensor fields of a Solution or UpdateStats (dicts flattened)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        val = getattr(obj, f.name)
+        if isinstance(val, dict):
+            out.update({f"{f.name}.{k}": v for k, v in val.items()})
+        elif isinstance(val, torch.Tensor):
+            out[f.name] = val
+    return out
+
+
+def bitwise_equal(a, b, what):
+    """Raise unless every tensor field of a equals b's element for element
+    (NaN where b has NaN: a frozen scenario's statistics)."""
+    ta, tb = tensor_fields(a), tensor_fields(b)
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{what}: fields differ")
+    for name in ta:
+        x, y = ta[name], tb[name]
+        if not bool(((x == y) | (x.isnan() & y.isnan())).all()):
+            gap = float((x - y).abs().nan_to_num(float("inf")).max())
+            raise AssertionError(f"{what}: {name} differs from the meshless "
+                                 f"run (max {gap:.3e})")
+
+
+def phase_distributed(gpu):
+    """The batch split over processes at world size 1: NCCL brought up by
+    ``initialize``, the pod mesh and ``make_mesh``; the trot update through
+    the mesh against the meshless one (bit for bit, launches asserted, ms per
+    update in turns); ``mean_kkt_error`` through NCCL; ``BatchedMPC`` at
+    B=4096 with and without the mesh; ``scaling_report`` on the trot step.
+    Returns the launches."""
+    distributed.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                           process_id=0)
+    try:
+        backend, world = tdist.get_backend(), tdist.get_world_size()
+        if (backend, world) != ("nccl", 1):
+            raise AssertionError(f"process group {backend} x {world}")
+        pod = distributed.make_pod_mesh()
+        mesh = it.make_mesh()
+        if (tuple(pod.mesh.shape), pod.mesh_dim_names) != ((1, 1),
+                                                           ("dcn", "ici")):
+            raise AssertionError(f"pod mesh {pod}")
+        if (tuple(mesh.mesh.shape), mesh.mesh_dim_names) != ((1,), ("dp",)):
+            raise AssertionError(f"mesh {mesh}")
+        total = dict.fromkeys(WRAPPERS, 0)
+
+        def count(config, updates):
+            launches = read_launches(config, updates)
+            for k in total:
+                total[k] += launches[k]
+            reset_launches()
+            return launches
+
+        # (a) the trot update through the mesh and without it
+        bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32,
+                                           "cuda")
+        meshed = it.BatchedSolver(bs.solver, mesh=mesh)
+        reset_launches()
+        out_p, stats_p = bs.update(sol_b, T0, q_b, v_b, sched)
+        count("plain", 1)
+        out_m, stats_m = meshed.update(meshed.device_put_batch(sol_b), T0,
+                                       q_b, v_b, sched)
+        mesh_launches = count("plain", 1)
+        bitwise_equal(out_m, out_p, "mesh update")
+        bitwise_equal(stats_m, stats_p, "mesh update stats")
+        errs = bs.kkt_error(out_p, T0, q_b, v_b, sched)
+        mean_nccl = meshed.mean_kkt_error(out_m, T0, q_b, v_b, sched)
+        local = errs.sum() / BATCH
+        for name, wrapper in WRAPPERS.items():
+            if wrapper.launches != 2 * KKT_LAUNCHES["trot"][name]:
+                raise AssertionError(f"{wrapper.launches} {name} launches in "
+                                     "two KKT residuals")
+            total[name] += wrapper.launches
+        reset_launches()
+        if not torch.equal(mean_nccl, local):
+            raise AssertionError(f"mean_kkt_error through NCCL "
+                                 f"{float(mean_nccl)} != the local mean "
+                                 f"{float(local)}")
+        ms = {"meshless": [], "mesh": []}
+        paths = {"meshless": bs, "mesh": meshed}
+        turns = ("meshless", "mesh", "mesh", "meshless") * (DIST_TURNS // 2)
+        for which in turns:
+            _, _, wall, _ = timed_updates(paths[which], sol_b,
+                                          (q_b, v_b, sched), DIST_UPDATES)
+            ms[which].append(1e3 * wall / DIST_UPDATES)
+        count("plain", 2 * DIST_TURNS * (DIST_UPDATES + 1))
+        emit(phase="distributed", part="trot_update", gpu=gpu, backend=backend,
+             world_size=world, pod_mesh=list(pod.mesh.shape),
+             pod_axes=list(pod.mesh_dim_names), mesh=list(mesh.mesh.shape),
+             batch=BATCH, horizon=N_HORIZON, dtype="float32",
+             bitwise_equal_to_meshless=True,
+             launches_per_update=mesh_launches,
+             mean_kkt_error_nccl=float(mean_nccl),
+             mean_kkt_error_local=float(local),
+             mean_kkt_error_torch_mean=float(errs.mean()),
+             ms_per_update_meshless=ms["meshless"],
+             ms_per_update_mesh=ms["mesh"], updates_per_turn=DIST_UPDATES)
+        del bs, meshed, out_p, out_m, sol_b
+
+        # (b) BatchedMPC at 4096 scenarios with per-scenario phases
+        offsets = random_offsets(MPC_BIG)
+        mpc, sol_p, q_b, v_b = build_mpc(MPC_BIG, torch.float32, "cuda",
+                                         options_for(False, False), offsets)
+        mpc_m = it.BatchedMPC(mpc.solver, mpc.gait, mpc.feet0, offsets,
+                              mesh=mesh)
+        sol_m = mpc_m.bs.device_put_batch(sol_p)
+        times = {"meshless": [], "mesh": []}
+        state = {"meshless": (mpc, sol_p), "mesh": (mpc_m, sol_m)}
+        stats = {}
+        for k in range(DIST_MPC_STEPS):       # in turns: who goes first swaps
+            for which in ("meshless", "mesh")[::1 - 2 * (k % 2)]:
+                runner, sol = state[which]
+                sol, _, stats[which], ms = timed_step(runner, MPC_DT * k, sol,
+                                                      q_b, v_b)
+                state[which] = runner, sol
+                times[which].append(ms[:2])
+            bitwise_equal(state["mesh"][1], state["meshless"][1],
+                          f"BatchedMPC step {k}")
+            bitwise_equal(stats["mesh"], stats["meshless"],
+                          f"BatchedMPC stats {k}")
+        count("plain", 2 * DIST_MPC_STEPS)
+        steady = slice(1, None)
+        emit(phase="distributed", part="batched_mpc", gpu=gpu, batch=MPC_BIG,
+             local_batch=len(mpc_m.local_offsets), steps=DIST_MPC_STEPS,
+             bitwise_equal_to_meshless=True,
+             step_ms_each={k: [a + b for a, b in v] for k, v in times.items()},
+             **{f"{which}_{name}_ms": float(np.mean(
+                 [x[i] for x in times[which][steady]]))
+                for which in times
+                for i, name in enumerate(("schedules_at", "update"))})
+        del mpc, mpc_m, sol_p, sol_m, state
+
+        # (c) the scaling report on the trot step
+        bs, sol_b, q_b, v_b, sched = build(BATCH, N_HORIZON, torch.float32,
+                                           "cuda")
+        meshed = it.BatchedSolver(bs.solver, mesh=mesh)
+
+        def make_batch(n):
+            return (it.batch_solution(bs.solver.solution, n), T0, q_b[:n],
+                    v_b[:n], sched)
+
+        def step(sol, t, q, v, s):
+            return meshed.update(sol, t, q, v, s)[0]
+
+        report = distributed.scaling_report(step, make_batch,
+                                            batch_per_device=BATCH,
+                                            iters=DIST_SCALING_ITERS)
+        count("plain", 2 * (DIST_SCALING_ITERS + 2))
+        if set(report) != {"1_device", "1_devices", "scaling_efficiency"} or \
+                not all(np.isfinite(v) and v > 0 for v in report.values()):
+            raise AssertionError(f"scaling_report: {report}")
+        emit(phase="distributed", part="scaling_report", gpu=gpu,
+             batch_per_device=BATCH, iters=DIST_SCALING_ITERS, **report,
+             note="one card: the multi-card rows wait for a machine with "
+                  "more than one card")
+    finally:
+        tdist.destroy_process_group()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# rigid-body dynamics: robot/dynamics.py at 4096 configurations
+# ---------------------------------------------------------------------------
+
+DYNAMICS_ROBOTS = (("anymal", anymal.make_model, anymal.FOOT_FRAMES),
+                   ("anymal_urdf", anymal.make_model_urdf, anymal.FOOT_FRAMES),
+                   ("iiwa14", iiwa14.make_model, ("ee_frame",)))
+
+
+def dynamics_states(m, fids, batch):
+    """``batch`` configurations from ``random_configuration`` (CPU generator
+    seeded at 0) with normal v, a and contact forces, f64 on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.stack([model_mod.random_configuration(m, gen)
+                     for _ in range(batch)])
+    r = lambda *s: torch.randn(s, generator=gen, dtype=torch.float64)
+    return q, r(batch, m.nv), r(batch, m.nv), r(batch, len(fids), 3)
+
+
+def dynamics_functions(m, fids, q, v, a, f):
+    return {
+        "rnea": lambda: dynamics.rnea(m, q, v, a, fids, f),
+        "rnea_derivatives": lambda: dynamics.rnea_derivatives(m, q, v, a,
+                                                              fids, f),
+        "mass_matrix": lambda: dynamics.mass_matrix(m, q),
+        "crba": lambda: dynamics.crba(m, q),
+        "nonlinear_effects": lambda: dynamics.nonlinear_effects(m, q, v),
+        "kinetic_energy": lambda: dynamics.kinetic_energy(m, q, v),
+        "contact_velocity_jacobian":
+            lambda: dynamics.contact_velocity_jacobian(m, q, fids)}
+
+
+def max_rel_err(x, ref):
+    """max |x - ref| / (1 + max |ref|)."""
+    return float((x.double() - ref.double()).abs().max()
+                 / (1.0 + ref.double().abs().max()))
+
+
+def phase_dynamics(gpu):
+    """``robot/dynamics.py`` on the card at DYN_BATCH random configurations
+    of three robots: ``mass_matrix`` against ``crba`` in f64 and f32, the
+    card's f64 ``rnea_derivatives``, ``mass_matrix`` and
+    ``contact_velocity_jacobian`` against the CPU's on the first
+    ``CPU_SCENARIOS``, and each function's ms in both types."""
+    n = CPU_SCENARIOS
+    for name, make, frames in DYNAMICS_ROBOTS:
+        m_cpu = make(dtype=torch.float64, device="cpu")
+        fids = tuple(m_cpu.frame_id(f) for f in frames)
+        states = dynamics_states(m_cpu, fids, DYN_BATCH)
+        cpu_fns = dynamics_functions(m_cpu, fids, *(s[:n] for s in states))
+        for dtype in (torch.float64, torch.float32):
+            m = make(dtype=dtype, device="cuda")
+            fns = dynamics_functions(m, fids, *(s.to(m.device, dtype)
+                                                for s in states))
+            M, C = fns["mass_matrix"](), fns["crba"]()
+            crba_err = float((M - C).abs().max())
+            crba_rel = crba_err / float(M.abs().max())
+            row = {}
+            if dtype == torch.float64:
+                if not crba_err <= DYN_TOL_F64:
+                    raise AssertionError(f"{name}: |M - crba| = {crba_err:.3e}"
+                                         f" above {DYN_TOL_F64:g}")
+                for key in ("rnea_derivatives", "mass_matrix",
+                            "contact_velocity_jacobian"):
+                    card, ref = fns[key](), cpu_fns[key]()
+                    if isinstance(card, torch.Tensor):
+                        card, ref = (card,), (ref,)
+                    err = max(max_rel_err(x[:n].cpu(), r)
+                              for x, r in zip(card, ref))
+                    if not err <= DYN_TOL_F64:
+                        raise AssertionError(
+                            f"{name} {key}: card vs CPU {err:.3e} above "
+                            f"{DYN_TOL_F64:g}")
+                    row[f"{key}_card_vs_cpu"] = err
+            elif not crba_rel <= DYN_TOL_F32:
+                raise AssertionError(f"{name} f32: |M - crba| / |M| = "
+                                     f"{crba_rel:.3e} above {DYN_TOL_F32:g}")
+            ms = {}
+            for key, fn in fns.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DYN_REPS):
+                    fn()
+                torch.cuda.synchronize()
+                ms[key] = 1e3 * (time.perf_counter() - t0) / DYN_REPS
+            emit(phase="dynamics", gpu=gpu, robot=name, batch=DYN_BATCH,
+                 dtype=str(dtype).replace("torch.", ""),
+                 max_abs_mass_matrix_vs_crba=crba_err,
+                 max_rel_mass_matrix_vs_crba=crba_rel,
+                 tolerance=DYN_TOL_F64 if dtype == torch.float64
+                 else DYN_TOL_F32, cpu_scenarios=n, **row, ms=ms)
+
+
+# ---------------------------------------------------------------------------
+# the four examples at their twins' sizes
+# ---------------------------------------------------------------------------
+
+def phase_examples(gpu):
+    """Each example's ``main`` on the card at its twin's sizes, f32, the
+    launches of every update asserted; the trot also in f64 when its f32
+    run froze. Returns the launches."""
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def run(name, fn, expected):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = fn()
+        seconds = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in WRAPPERS.items()}
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{expected}")
+        text = printed.getvalue()
+        if not all(np.isfinite(x) for x in out.values()) or re.search(
+                r"\b(nan|inf)\b", text, re.I):
+            raise AssertionError(f"{name}: non-finite result {out} {text}")
+        for k in total:
+            total[k] += launches[k]
+        emit(phase="examples", gpu=gpu, example=name, seconds=seconds,
+             launches=launches, printed=text.splitlines(), **out)
+        return out
+
+    def times(config, updates, extra=None):
+        per = LAUNCHES_PER_UPDATE[config]
+        extra = extra or {}
+        return {k: updates * per[k] + extra.get(k, 0) for k in per}
+
+    f32 = torch.float32
+    run("anymal_ocp_benchmark",
+        lambda: anymal_ocp_benchmark.main("cuda", f32),
+        times("line_search", 1 + 20, KKT_LAUNCHES["trot"]))
+    run("iiwa14_ocp_benchmark",
+        lambda: iiwa14_ocp_benchmark.main("cuda", f32),
+        times("unconstr", 1 + 100, KKT_LAUNCHES["iiwa14"]))
+    run("iiwa14_parnmpc_benchmark",
+        lambda: iiwa14_parnmpc_benchmark.main("cuda", f32),
+        times("parallel_unconstr", 1 + 100))
+    steps = int(1.5 / 0.01)
+    trot = run("anymal_mpc_trot", lambda: anymal_mpc_trot.main("cuda", f32),
+               times("line_search", steps))
+    if trot["frozen_steps"]:
+        run("anymal_mpc_trot_f64",
+            lambda: anymal_mpc_trot.main("cuda", torch.float64),
+            times("line_search", steps))
+    per = {k: TROT_POLICY_STEPS * (LAUNCHES_PER_UPDATE["line_search"][k]
+                                   + LAUNCHES_PER_UPDATE["line_search"][k]
+                                   + TROT_POLICY_LAUNCHES[k])
+           for k in WRAPPERS}
+    policy = run("anymal_mpc_trot_policy",
+                 lambda: anymal_mpc_trot.run_policy_comparison("cuda", f32),
+                 per)
+    if not policy["lqr"] <= policy["zoh"]:
+        raise AssertionError(f"LQR tracks worse than ZOH: {policy}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1883,6 +2251,10 @@ def main():
         launches = {k: launches[k] + phase_launches[k] for k in launches}
     phase_launches = phase_parallel_riccati(gpu, gen)
     launches = {k: launches[k] + phase_launches[k] for k in launches}
+    for phase in (phase_distributed, phase_examples):
+        phase_launches = phase(gpu)
+        launches = {k: launches[k] + phase_launches[k] for k in launches}
+    phase_dynamics(gpu)
 
     print(gpu)
     kernels = []

@@ -14,8 +14,12 @@ with ``step_with_policy``, ``BatchedMPC`` with per-scenario gait phases), the
 batched schedule discretizer (host C++ built at first use), the pinned-contact
 simulator, every cost and constraint component, the checkpoint, logging and
 benchmark utilities, and everything below them, down to the hand-written CUDA
-kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``. Of the
-twin's public names only ``make_mesh`` (multi-device) is not ported yet.
+kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``; the
+split of the scenario batch over processes (``make_mesh``,
+``parallel.distributed``, one process per card on ``torch.distributed``), the
+rigid-body dynamics (``robot.dynamics``), the hand-built ANYmal and the four
+examples (``idocp_tpu_torch.examples``). Every public name of the twin is
+exported.
 """
 from .constraints.components import (
     ConstraintComponent, ContactNormalForce, FrictionCone,
@@ -32,7 +36,7 @@ from .hybrid.native import discretize_batch
 from .hybrid.schedule import (ContactSequence, DiscreteEvent, HorizonSchedule,
                               stack_schedules, static_schedule)
 from .ocp.data import Solution, zero_solution
-from .parallel.batch import BatchedSolver, batch_solution
+from .parallel.batch import BatchedSolver, batch_solution, make_mesh
 from .riccati.recursion import LQRPolicy
 from .robot.contact import ContactModel, ContactStatus
 from .robot.model import (ModelBuilder, RobotModel, difference, integrate,
@@ -65,7 +69,7 @@ __all__ = [
     "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
     "OCPSolver", "UnconstrOCPSolver", "ParNMPCSolver", "UnconstrParNMPCSolver",
     "TrotGait", "schedule_at", "MPC", "BatchedMPC", "BatchedSolver",
-    "batch_solution", "pinned_contact_step",
+    "batch_solution", "make_mesh", "pinned_contact_step",
     "benchmark_convergence", "benchmark_solver", "load_solution",
     "save_solution",
 ]

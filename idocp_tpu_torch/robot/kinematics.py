@@ -1,14 +1,15 @@
-"""Forward kinematics: world poses of all bodies, frame placements and the
-center of mass.
+"""Forward kinematics: world poses of all bodies, frame placements and
+velocities, their linear Jacobians, the center of mass and the potential
+energy.
 
-Twin of ``idocp_tpu/robot/kinematics.py`` (``body_poses_stacked``,
-``frame_pose``, ``frame_position``, ``frame_positions``, ``com``, and
-``frame_velocities`` / ``frame_accelerations`` / ``frame_pva``, which the twin
-writes as ``jax.jvp`` towers and the port as the closed forms of
-``spatial.motion`` + ``spatial.point_pva``; the twin's Jacobian helpers are
-replaced by ``spatial.frame_jacobian`` / ``com_jacobian``). The tree recursion runs over tree depth: each level handles all its
-bodies as one gather / compose / concatenate step. ``q`` may carry leading
-dimensions.
+Twin of ``idocp_tpu/robot/kinematics.py``. The twin writes the frame
+velocities, accelerations and Jacobians as ``jax.jvp`` / ``jax.jacfwd`` towers
+over its FK; the port takes them from the closed forms of ``spatial.motion``,
+``spatial.point_pva`` and ``spatial.point_jacobians``. The tree recursion runs
+over tree depth: each level handles all its bodies as one gather / compose /
+concatenate step. The list-returning ``local_transforms`` / ``body_poses`` walk
+body by body, as in the twin, and serve as oracles. ``q`` may carry leading
+dimensions everywhere.
 """
 from __future__ import annotations
 
@@ -16,7 +17,21 @@ import numpy as np
 import torch
 
 from . import lie
-from .model import FREE, REVOLUTE, RobotModel
+from .model import FREE, PRISMATIC, REVOLUTE, RobotModel
+
+
+def joint_transform(jt: int, axis, qi):
+    """Child-in-parent-joint-frame pose (R (..., 3, 3), p (..., 3)) from the
+    joint configuration qi: (..., 7) for a free joint, else (..., 1)."""
+    if jt == FREE:
+        return lie.quat_to_matrix(qi[..., 3:7]), qi[..., :3]
+    if jt == REVOLUTE:
+        w = axis * qi
+        return lie.so3_exp(w), torch.zeros_like(w)
+    if jt == PRISMATIC:
+        p = axis * qi
+        return lie._eye3_like(lie.hat(p)), p
+    raise ValueError(f"unknown joint type {jt}")
 
 
 def tree_levels(model: RobotModel):
@@ -93,6 +108,16 @@ def _local_transforms_grouped(model: RobotModel, q):
     return torch.cat(R_parts, dim=-3), torch.cat(p_parts, dim=-2)
 
 
+def local_transforms_stacked(model: RobotModel, q):
+    """Per-body pose relative to its parent body in body order:
+    (..., nb, 3, 3), (..., nb, 3)."""
+    one_dof, free, *_ = fk_meta(model)
+    grp_pos = np.argsort(np.concatenate([free, one_dof]))
+    Rg, pg = _local_transforms_grouped(model, q)
+    return (_take(model, "grp_pos", Rg, grp_pos, -3),
+            _take(model, "grp_pos", pg, grp_pos, -2))
+
+
 def body_poses_stacked(model: RobotModel, q):
     """World pose of every body: (..., nb, 3, 3), (..., nb, 3)."""
     (_, _, levels, lvl_local_rows, lvl_parent_rows,
@@ -109,6 +134,35 @@ def body_poses_stacked(model: RobotModel, q):
         pw_cat = torch.cat([pw_cat, pp + lie.mv3(Rp, pl_i)], dim=-2)
     return (_take(model, "lvl_pos_of_body", Rw_cat, lvl_pos_of_body, -3),
             _take(model, "lvl_pos_of_body", pw_cat, lvl_pos_of_body, -2))
+
+
+def local_transforms(model: RobotModel, q):
+    """Per-body pose relative to its parent body, X_pc = X_tree * X_joint, as
+    two lists over bodies, one joint at a time (an oracle for the stacked
+    form and the frames ``dynamics.crba`` works in)."""
+    Rs, ps = [], []
+    for i, jt in enumerate(model.joint_types):
+        qo = model.q_offset[i]
+        Rj, pj = joint_transform(jt, model.joint_axis[i],
+                                 q[..., qo:qo + (7 if jt == FREE else 1)])
+        Rs.append(model.jpl_rot[i] @ Rj)
+        ps.append(model.jpl_pos[i] + lie.mv3(model.jpl_rot[i], pj))
+    return Rs, ps
+
+
+def body_poses(model: RobotModel, q):
+    """World pose of every body as two lists, composed body by body down the
+    tree (an oracle for ``body_poses_stacked``)."""
+    Rl, pl = local_transforms(model, q)
+    Rw, pw = [], []
+    for i, par in enumerate(model.parent):
+        if par < 0:
+            Rw.append(Rl[i])
+            pw.append(pl[i])
+        else:
+            Rw.append(Rw[par] @ Rl[i])
+            pw.append(pw[par] + lie.mv3(Rw[par], pl[i]))
+    return Rw, pw
 
 
 def frame_positions(model: RobotModel, q, frame_ids):
@@ -167,3 +221,30 @@ def frame_accelerations(model: RobotModel, q, v, a, frame_ids):
     the velocity along q' = v, v' = a): what the Baumgarte contact
     constraint needs."""
     return frame_pva(model, q, v, a, frame_ids)[2]
+
+
+def frame_velocity(model: RobotModel, q, v, frame_id: int):
+    """World-frame linear velocity of one frame origin (..., 3)."""
+    return frame_velocities(model, q, v, (frame_id,))[..., 0, :]
+
+
+def frame_linear_jacobians(model: RobotModel, q, frame_ids):
+    """(..., len(frame_ids), 3, nv) world-frame linear-velocity Jacobians of
+    frame origins in the tangent space: v_f = J(q) v for any generalized v."""
+    from . import spatial
+    fkb = spatial.fk(model, q)
+    p_f, fb = spatial.frame_points(model, fkb, frame_ids)
+    return spatial.point_jacobians(model, fkb, p_f, fb)
+
+
+def frame_linear_jacobian(model: RobotModel, q, frame_id: int):
+    """(..., 3, nv) linear Jacobian of one frame origin."""
+    return frame_linear_jacobians(model, q, (frame_id,))[..., 0, :, :]
+
+
+def potential_energy(model: RobotModel, q):
+    """Total gravitational potential energy (...,): the oracle of the gravity
+    torques."""
+    Rw, pw = body_poses_stacked(model, q)
+    ci = pw + lie.mv3(Rw, model.com)
+    return -(model.mass * (ci @ model.gravity)).sum(dim=-1)

@@ -5,7 +5,8 @@ is static Python metadata; numeric parameters (placements, inertias, limits)
 are tensors on one device in one dtype. ``integrate`` / ``difference`` take
 arbitrary leading dimensions. ``difference_jacobian`` has no twin: the JAX
 package differentiates ``difference`` with forward-mode autodiff, the port
-uses the closed form.
+uses the closed form. ``tangent_jacobian`` is a helper for tests and tools,
+off every solver path.
 """
 from __future__ import annotations
 
@@ -202,6 +203,15 @@ def difference_jacobian(model: RobotModel, d):
             vo = model.v_offset[i]
             J[..., vo:vo + 6, vo:vo + 6] = lie.se3_jr_inv(d[..., vo:vo + 6])
     return J
+
+
+def tangent_jacobian(fn, model: RobotModel, q):
+    """d/de fn(q (+) e) at e = 0: the Jacobian of fn in the tangent space at
+    one configuration q (nq,), of shape fn(q).shape + (nv,), by
+    ``torch.autograd.functional.jacobian``."""
+    zero = torch.zeros(model.nv, dtype=q.dtype, device=q.device)
+    return torch.autograd.functional.jacobian(
+        lambda e: fn(integrate(model, q, e)), zero)
 
 
 def random_configuration(model: RobotModel, generator: torch.Generator,

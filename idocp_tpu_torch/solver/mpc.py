@@ -4,8 +4,9 @@ Twin of ``idocp_tpu/solver/mpc.py`` (``TrotGait``, ``MPC`` with ``step`` and
 ``step_with_policy``, ``BatchedMPC``; the gait is host-side numpy, a
 near-verbatim copy). ``BatchedMPC`` gives every scenario its own gait phase:
 the schedules are built by the native batched discretizer and enter the
-batched update with a leading scenario axis. The module-level
-``schedule_at`` is ``MPC.schedule_at`` for a bare solver.
+batched update with a leading scenario axis; with a mesh, each rank builds
+and solves only its own block of scenarios. The module-level ``schedule_at``
+is ``MPC.schedule_at`` for a bare solver.
 """
 from __future__ import annotations
 
@@ -122,36 +123,46 @@ class BatchedMPC:
     gait phases: scenario b runs the gait with t_start = gait.t_start +
     phase_offsets[b]. Its schedules come from the native batched
     discretizer and enter ``BatchedSolver.update`` with a leading batch
-    axis."""
+    axis. With a ``mesh``, ``phase_offsets`` and ``batch`` stay global while
+    this rank builds the schedules of, and steps, only its own block of
+    scenarios (``local_offsets``)."""
 
-    def __init__(self, solver, gait: TrotGait, feet0, phase_offsets):
+    def __init__(self, solver, gait: TrotGait, feet0, phase_offsets,
+                 mesh=None):
         self.solver = solver
         self.gait = gait
         self.feet0 = np.asarray(feet0, float)
         self.phase_offsets = np.asarray(phase_offsets, float)
-        self.bs = BatchedSolver(solver)
+        self.bs = BatchedSolver(solver, mesh=mesh)
 
     @property
     def batch(self):
         return len(self.phase_offsets)
 
+    @property
+    def local_offsets(self):
+        """The phase offsets of this rank's scenarios (all without a mesh)."""
+        if self.bs.sharding is None:
+            return self.phase_offsets
+        return self.bs.sharding.shard(self.phase_offsets)
+
     def sequences_at(self, t):
-        """Each scenario's contact sequence over [t, t + T + 1]."""
+        """Each local scenario's contact sequence over [t, t + T + 1]."""
         end = t + self.solver.T + 1.0
         return [dataclasses.replace(self.gait, t_start=self.gait.t_start + off
                                     ).build_sequence(self.feet0, t, end)
-                for off in self.phase_offsets]
+                for off in self.local_offsets]
 
     def schedules_at(self, t) -> HorizonSchedule:
-        """The batched schedule (fields (B, N, ...)) of the window at t, on
-        the solver's device and dtype."""
-        return discretize_batch(self.sequences_at(t), np.full(self.batch, t),
-                                self.solver.T, self.solver.N,
-                                dtype=self.solver.dtype,
+        """The batched schedule (fields (B_local, N, ...)) of the window at
+        t, on the solver's device and dtype."""
+        seqs = self.sequences_at(t)
+        return discretize_batch(seqs, np.full(len(seqs), t), self.solver.T,
+                                self.solver.N, dtype=self.solver.dtype,
                                 device=self.solver.device)
 
     def step(self, t, sol_b, q_b, v_b):
-        """One warm-started Newton iteration per scenario; returns (new
-        batched Solution, first-interval torques (B, nu), stats)."""
+        """One warm-started Newton iteration per local scenario; returns (new
+        batched Solution, first-interval torques (B_local, nu), stats)."""
         sol_b, stats = self.bs.update(sol_b, t, q_b, v_b, self.schedules_at(t))
         return sol_b, sol_b.u[:, 0], stats

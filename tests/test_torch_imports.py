@@ -1,7 +1,8 @@
 """The port stands alone: importing ``idocp_tpu_torch`` and every sub-module
 in a fresh interpreter pulls in neither JAX nor the JAX package, builds or
-loads no CUDA library, and its entry points refuse to run when no CUDA device
-is present instead of carrying on on the CPU."""
+loads no CUDA library, and its entry points (the examples' ``main`` and the
+multi-process bring-up among them) refuse to run when no CUDA device is
+present instead of carrying on on the CPU."""
 import json
 import pathlib
 import re
@@ -43,6 +44,10 @@ from idocp_tpu_torch.hybrid import native
 from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.hybrid.schedule import static_schedule
 from idocp_tpu_torch import convert
+from idocp_tpu_torch.parallel import distributed
+from idocp_tpu_torch.examples import (anymal_mpc_trot, anymal_ocp_benchmark,
+                                      iiwa14_ocp_benchmark,
+                                      iiwa14_parnmpc_benchmark)
 
 def raises(fn):
     try:
@@ -85,6 +90,17 @@ print(json.dumps({
             "missing.npz")),
         "ContactStatus.make": raises(
             lambda: idocp_tpu_torch.ContactStatus.make([True] * 4)),
+        "anymal.make_model": raises(lambda: anymal.make_model()),
+        "initialize": raises(lambda: distributed.initialize()),
+        "make_pod_mesh": raises(lambda: distributed.make_pod_mesh()),
+        "make_mesh": raises(lambda: idocp_tpu_torch.make_mesh()),
+        "anymal_ocp_benchmark.main": raises(anymal_ocp_benchmark.main),
+        "iiwa14_ocp_benchmark.main": raises(iiwa14_ocp_benchmark.main),
+        "iiwa14_parnmpc_benchmark.main": raises(
+            iiwa14_parnmpc_benchmark.main),
+        "anymal_mpc_trot.main": raises(anymal_mpc_trot.main),
+        "anymal_mpc_trot.run_policy_comparison": raises(
+            anymal_mpc_trot.run_policy_comparison),
     },
 }))
 """
@@ -111,17 +127,19 @@ def test_every_module_imports_without_jax(probe):
         "solver.unconstr_ocp_solver", "solver.mpc", "parallel.batch",
         "hybrid.native", "utils.simulation", "riccati.parallel",
         "solver.parnmpc_solver", "utils.checkpoint", "utils.logging",
-        "utils.benchmarker")}
+        "utils.benchmarker", "robot.dynamics", "parallel.distributed",
+        "examples", "examples.anymal_ocp_benchmark",
+        "examples.iiwa14_ocp_benchmark", "examples.iiwa14_parnmpc_benchmark",
+        "examples.anymal_mpc_trot")}
     assert expected <= set(probe["modules"])
 
 
 def test_public_surface_is_the_twins():
-    """Every public name of the JAX package but ``make_mesh`` (multi-device,
-    not ported yet) is exported by the port."""
+    """Every public name of the JAX package is exported by the port."""
     import idocp_tpu
     import idocp_tpu_torch
     missing = set(idocp_tpu.__all__) - set(idocp_tpu_torch.__all__)
-    assert missing == {"make_mesh"}
+    assert missing == set()
     for name in idocp_tpu_torch.__all__:
         assert getattr(idocp_tpu_torch, name) is not None, name
 
