@@ -26,7 +26,11 @@ bit against the meshless one, ``mean_kkt_error`` through NCCL, ``BatchedMPC``
 at B=4096 with and without the mesh, ``scaling_report``. The four examples
 at their twins' sizes, and ``robot/dynamics.py`` at 4096 random
 configurations (``mass_matrix`` against ``crba``, the card against the CPU).
-It builds
+The eight measurement tools of ``idocp_tpu_torch/tools/``, once each: the
+device's idle share of whole updates, the top device operations, FLOPs and
+bytes per update, the accuracy oracle's cases against their bars, the
+linearization's sub-phases, the kernel bench, the first-call profile and the
+scaling report (their JSON into ``chiprun_out/tools/``). It builds
 the CUDA kernel from the sources in this checkout, holds both of its entry
 points (``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
 versions on the card, shows that every path went through them (launch counts,
@@ -41,8 +45,8 @@ import dataclasses
 import importlib
 import io
 import json
+import pathlib
 import re
-import socket
 import subprocess
 import sys
 import time
@@ -66,16 +70,25 @@ from idocp_tpu_torch.ops import _build
 from idocp_tpu_torch.parallel import distributed
 from idocp_tpu_torch.riccati import parallel as riccati_parallel
 from idocp_tpu_torch.riccati import recursion
-from idocp_tpu_torch.robot import dynamics, kinematics
+from idocp_tpu_torch.robot import dynamics
 from idocp_tpu_torch.robot import model as model_mod
+from idocp_tpu_torch.tools import (accuracy_oracle, chol_kernel_bench,
+                                   linearize_profile, mfu_report,
+                                   runtime_profile, scaling_evidence,
+                                   trace_capture)
+from idocp_tpu_torch.tools._workloads import (IIWA_N, IIWA_T0, LS_TRIALS,
+                                              N_HORIZON, T0, build,
+                                              build_iiwa, gpu_line,
+                                              options_for, standing_feet,
+                                              write_json)
+from idocp_tpu_torch.tools.accuracy_oracle import (build_standing,
+                                                   closed_loop_solver,
+                                                   closed_loop_u0)
+from idocp_tpu_torch.tools.chol_kernel_bench import (bound_ms, device_ms,
+                                                     library_call, time_ms)
 
-# Published peaks of one H100 SXM, used for the bound of each kernel.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12          # float32 outside the tensor cores
-F64_FLOPS = 67e12 / 2
-
-BATCH, N_HORIZON, ITERS, T_HORIZON, T0 = 512, 20, 20, 0.5, 0.05
-LS_TRIALS, SOLVE_BATCH, SOLVE_CAP, CPU_SCENARIOS = 8, 64, 30, 8
+BATCH, ITERS = 512, 20
+SOLVE_BATCH, SOLVE_CAP, CPU_SCENARIOS = 64, 30, 8
 # solve() to the tolerance a user would ask of f64, which the filter search's
 # margin keeps this problem from reaching in 30 iterations, and to one that
 # the scenarios reach after different numbers of iterations
@@ -87,7 +100,7 @@ SOLVE_TOLS = (1e-6, 1e-4)
 # The fixed-base horizon (BASELINE #1 / #2 of the JAX package: iiwa14, T=1,
 # N=50) has no contact block and no switching rows: one control-Hessian
 # factorization per Riccati step and nothing else.
-IIWA_BATCH, IIWA_N, IIWA_T, IIWA_T0 = 512, 50, 1.0, 0.0
+IIWA_BATCH = 512
 IIWA_ACC_UPDATES, IIWA_REF_UPDATES, U0_REF_TOL = 15, 25, 1e-4
 COST_UPDATES = 5
 # The MPC drivers (BASELINE #5 of the JAX package): BatchedMPC over the trot
@@ -105,7 +118,7 @@ MPC_EQUAL_STEPS, MPC_LS_STEPS, MPC_EQUAL_TOL = 3, 5, 1e-6
 STANDING_UPDATES, STANDING_REF_UPDATES = 15, 25
 # the closed loop of tools/accuracy_oracle.py::run_closed_loop: 12 periods of
 # 0.05 s, the shipping options, the first 4 against the CPU
-CL_PERIODS, CL_DT, CL_CPU_PERIODS, CL_GAIT_START, CL_TOL = 12, 0.05, 4, 0.25, 1e-6
+CL_PERIODS, CL_DT, CL_CPU_PERIODS, CL_TOL = 12, 0.05, 4, 1e-6
 # the ZOH-against-LQR comparison of tests/test_mpc.py (N=8, T=0.4, the
 # default options): per update 4 stage / slot factorizations, 2 on the
 # search's grid and the 8 switching Schur complements; the policy's own
@@ -183,6 +196,19 @@ RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
                  (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES \
     + PARALLEL_RESCUE_SHAPES
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# The measurement tools (idocp_tpu_torch/tools/), each once: runtime_profile
+# at the twin's options at B in {256, 512} and at the main path's at B=512,
+# trace_capture and mfu_report on the main path at B=512, the accuracy
+# oracle's seven cases (f32 and its f64 reference on the card), held at
+# 1e-4 on u0 where the port meets the twin's bar and at 1e-3 on the trot,
+# whose f32 KKT error floors at 5e-3 (the closed loop is reported),
+# linearize_profile at 5120 stage instances, chol_kernel_bench at 10240
+# (its launches compare, they are not counted), compile_profile in a fresh
+# process, scaling_evidence over NCCL on the card. JSON into TOOLS_OUT.
+TOOLS_OUT = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "tools"
+TOOL_BATCHES, LIN_INSTANCES, BENCH_BATCH = (256, 512), 5120, 10240
+ACC_BARS = {"standing": 1e-4, "standing_ship": 1e-4, "iiwa_unconstr": 1e-4,
+            "iiwa_limits": 1e-4, "trot": 1e-3, "trot_ship": 1e-3}
 U0_TOL = 1e-3
 SOLVE_U0_TOL = 1e-6
 # evaluate_all at the current point against the update's own (cost0, viol0)
@@ -193,13 +219,6 @@ MERIT_TOL = 2e-4
 
 def emit(**obj):
     print(json.dumps(obj), flush=True)
-
-
-def gpu_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -318,70 +337,6 @@ def check_rescue_against_plain(G, reg, rungs, what):
     if not bool((torch.triu(K, 1) == 0).all()):
         raise AssertionError(f"chol_rescue_tri_inv {what}: upper triangle not 0")
     return float(err.max())
-
-
-def time_ms(fn, inputs, reps):
-    """Mean milliseconds of fn over `reps` rounds through `inputs` (distinct
-    buffers larger than the L2 cache together), CUDA events, after a warm-up."""
-    for A in inputs[:2]:
-        fn(A)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        for A in inputs:
-            fn(A)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * len(inputs))
-
-
-def device_ms(fn, inputs, replays=20):
-    """Milliseconds of one call of fn on the device alone: one call per input
-    captured into a CUDA graph and the graph replayed, so the host's cost of
-    launching is not in the time."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for A in inputs[:2]:
-            fn(A)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = [fn(A) for A in inputs]
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    del outs
-    return start.elapsed_time(stop) / (replays * len(inputs))
-
-
-def library_call(A):
-    n = A.shape[-1]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
-    return torch.linalg.solve_triangular(torch.linalg.cholesky(A), eye,
-                                         upper=False)
-
-
-def bound_ms(shape, dtype, factorizations=1):
-    """Least time the card could take: the larger of bytes moved (input read
-    once, output written once) over the memory rate and operations (n^3/3 for
-    each factorization this run's data needs + n^3/3 for the triangular
-    inverse) over the peak rate."""
-    b, n, _ = shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 2 * b * n * n * itemsize / HBM_BYTES_PER_S
-    t_ops = b * ((factorizations + 1) * n ** 3 / 3.0) / (
-        F32_FLOPS if dtype == torch.float32 else F64_FLOPS)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def launch_floor_probe():
@@ -551,66 +506,6 @@ def phase_kernels(gen):
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
-
-def options_for(line_search_on, kkt_error_on):
-    """The workload's solver options: without line search the trust cap of
-    1.0 is the globalization, with it the filter search on 8 trials is."""
-    if not line_search_on:
-        return it.SolverOptions(barrier=1e-3, max_step_norm=1.0,
-                                use_line_search=False,
-                                compute_kkt_error=kkt_error_on,
-                                parallel_riccati=False)
-    return it.SolverOptions(barrier=1e-3, max_step_norm=float("inf"),
-                            use_line_search=True,
-                            line_search_alphas=LS_TRIALS,
-                            line_search_filter_size=8,
-                            compute_kkt_error=kkt_error_on,
-                            parallel_riccati=False)
-
-
-def build(batch, n_horizon, dtype, device, seed=0, options=None,
-          contact_costs=False, t_horizon=T_HORIZON, solver_cls=it.OCPSolver):
-    """The benchmark workload through the port's API: warm-started whole-body
-    trot MPC for ANYmal with one touchdown in the horizon, `batch` perturbed
-    scenarios sharing one schedule. ``contact_costs`` adds a
-    ``ContactForceCost`` (towards the standing forces) and a ``CoMCost``
-    (towards the standing center of mass); ``solver_cls`` is ``OCPSolver``
-    or ``ParNMPCSolver``. Returns (bs, sol_b, q_b, v_b, sched)."""
-    m = anymal.make_model_urdf(dtype=dtype, device=device)
-    foot_ids = tuple(m.frame_id(n) for n in anymal.FOOT_FRAMES)
-    cm = it.ContactModel(frame_ids=foot_ids, kp=25.0, kd=10.0)
-    q0 = anymal.standing_configuration(m)
-    feet = kinematics.frame_positions(m, q0, foot_ids).cpu().numpy()
-    w = lambda x: torch.tensor(x, dtype=dtype, device=m.device)
-    q_w = [0.0] * 3 + [10.0] * 3 + [1.0] * 12
-    cost = [it.ConfigurationSpaceCost(
-        q_weight=w(q_w), v_weight=w([1.0] * 18), a_weight=w([1e-3] * 18),
-        u_weight=w([1e-2] * 12), qf_weight=w(q_w), vf_weight=w([1.0] * 18),
-        q_ref=q0)]
-    if contact_costs:
-        f_stand = [0.0, 0.0, float(m.mass.sum()) * 9.81 / 4] * 4
-        cost += [it.ContactForceCost(f_weight=w([1e-3] * 12),
-                                     f_ref=w(f_stand)),
-                 it.CoMCost(weight=w([10.0] * 3),
-                            weight_terminal=w([100.0] * 3),
-                            com_ref=kinematics.com(m, q0))]
-    cons = [it.JointTorquesLowerLimit(m), it.JointTorquesUpperLimit(m),
-            it.FrictionCone(m, nc=4, mu=0.7)]
-    options = options or options_for(False, False)
-    solver = solver_cls(m, cm, cost, cons, T=t_horizon, N=n_horizon,
-                        options=options, dtype=dtype, device=device)
-    sched = it.schedule_at(solver, it.TrotGait(t_start=0.1), feet, T0)
-    solver.set_solution(q0, torch.zeros(m.nv, dtype=dtype, device=m.device),
-                        schedule=sched)
-    solver.init_constraints(sched)
-
-    rng = np.random.default_rng(seed)
-    dq = w(0.02 * rng.standard_normal((batch, m.nv)))
-    v_b = w(0.05 * rng.standard_normal((batch, m.nv)))
-    q_b = model_mod.integrate(m, q0.expand(batch, -1), dq)
-    sol_b = it.batch_solution(solver.solution, batch)
-    return it.BatchedSolver(solver), sol_b, q_b, v_b, sched
-
 
 def reset_launches():
     for wrapper in WRAPPERS.values():
@@ -939,48 +834,6 @@ def phase_accuracy(gpu, line_search_on):
 # the fixed-base family: iiwa14, N=50
 # ---------------------------------------------------------------------------
 
-def build_iiwa(batch, dtype, device, with_limits, seed=0, task_space=False,
-               solver_cls=it.UnconstrOCPSolver):
-    """BASELINE #1 (no limits) / #2 (joint position, velocity and torque
-    limits) of the JAX package (``tools/accuracy_oracle.py::run_iiwa``)
-    through the port's API: iiwa14 from its URDF, the same
-    ``ConfigurationSpaceCost``, T=1, N=50, the default options (filter line
-    search, KKT residual). ``batch`` measured states at rest, the joint
-    positions drawn uniformly within a quarter of their limits, all warm-
-    started from the zero configuration. ``task_space`` adds a
-    ``TaskSpace6DCost`` on ``ee_frame`` (a fixed pose) and a
-    ``TaskSpace3DCost`` on it (a moving target, a callable of t);
-    ``solver_cls`` is ``UnconstrOCPSolver`` or ``UnconstrParNMPCSolver``.
-    Returns (bs, sol_b, q_b, v_b)."""
-    m = iiwa14.make_model_urdf(dtype=dtype, device=device)
-    w = lambda x: torch.tensor(x, dtype=dtype, device=m.device)
-    q_ref = w([0.0, 0.5, 0.0, -0.5, 0.0, 0.5, 0.0])
-    cost = [it.ConfigurationSpaceCost(
-        q_weight=w([10.0] * 7), v_weight=w([1.0] * 7), a_weight=w([0.01] * 7),
-        u_weight=w([0.01] * 7), qf_weight=w([10.0] * 7),
-        vf_weight=w([1.0] * 7), q_ref=q_ref)]
-    if task_space:
-        ee = m.frame_id("ee_frame")
-        R_ref, p_ref = kinematics.frame_pose(m, q_ref, ee)
-        moving = lambda t: p_ref + 0.1 * torch.stack(
-            [torch.sin(2 * t), 1 - torch.cos(2 * t), 0 * t], dim=-1)
-        cost += [it.TaskSpace6DCost(ee, w([1.0] * 6), w([10.0] * 6),
-                                    rot_ref=R_ref, pos_ref=p_ref + 0.05),
-                 it.TaskSpace3DCost(ee, w([10.0] * 3), w([100.0] * 3),
-                                    pos_ref=moving)]
-    cons = it.default_joint_limits(m) if with_limits else []
-    solver = solver_cls(m, cost, cons, T=IIWA_T, N=IIWA_N,
-                        options=it.SolverOptions(barrier=1e-3), dtype=dtype,
-                        device=device)
-    solver.set_solution(w([0.0] * 7), w([0.0] * 7))
-    solver.init_constraints()
-    rng = np.random.default_rng(seed)
-    q_max = m.q_max.cpu().numpy()
-    q_b = w(0.25 * q_max * rng.uniform(-1.0, 1.0, (batch, 7)))
-    sol_b = it.batch_solution(solver.solution, batch)
-    return it.BatchedSolver(solver), sol_b, q_b, torch.zeros_like(q_b)
-
-
 def iiwa_workload(with_limits):
     return "iiwa14_limits" if with_limits else "iiwa14"
 
@@ -1117,13 +970,6 @@ def phase_costs(gpu):
 # ---------------------------------------------------------------------------
 # the MPC drivers: BatchedMPC, ANYmal standing, the closed loop
 # ---------------------------------------------------------------------------
-
-def standing_feet(solver):
-    """The foot positions of the standing configuration (numpy)."""
-    m = solver.model
-    return kinematics.frame_positions(
-        m, anymal.standing_configuration(m), solver.cm.frame_ids).cpu().numpy()
-
 
 def build_mpc(batch, dtype, device, options, offsets,
               solver_cls=it.OCPSolver):
@@ -1326,23 +1172,6 @@ def phase_batched_mpc(gpu):
     return total
 
 
-def build_standing(batch, dtype, device):
-    """BASELINE #3 (``tools/accuracy_oracle.py::run_case("standing")``)
-    through the port's API: ``build``'s model, cost, constraints and measured
-    states, all four feet on the ground over the horizon, the default options.
-    Returns (bs, sol_b, q_b, v_b, sched)."""
-    bs, sol_b, q_b, v_b, _ = build(batch, N_HORIZON, dtype, device,
-                                   options=options_for(True, True))
-    solver = bs.solver
-    sched = it.static_schedule(solver.cm.nc, N_HORIZON, T_HORIZON / N_HORIZON,
-                               [True] * 4, standing_feet(solver), dtype=dtype,
-                               device=solver.device)
-    q0 = anymal.standing_configuration(solver.model)
-    solver.set_solution(q0, torch.zeros_like(v_b[0]), schedule=sched)
-    solver.init_constraints(sched)
-    return bs, it.batch_solution(solver.solution, batch), q_b, v_b, sched
-
-
 def phase_standing(gpu):
     """ANYmal standing at B=512 in f32: ms per update and launches, then f32
     after 15 updates against the port's f64 on the CPU after 25."""
@@ -1383,62 +1212,6 @@ def phase_standing(gpu):
     return launches
 
 
-def closed_loop_solver(dtype, device, gait, n_horizon=N_HORIZON,
-                       t_horizon=T_HORIZON, options=None):
-    """One ANYmal MPC (``build``'s cost and constraints, the shipping options
-    of the accuracy oracle unless told otherwise) warm-started at rest, and
-    the standing configuration."""
-    bs, *_ = build(1, n_horizon, dtype, device, t_horizon=t_horizon,
-                   options=options or it.SolverOptions(
-                       barrier=1e-3, use_line_search=False, max_step_norm=1.0))
-    solver = bs.solver
-    mpc = it.MPC(solver, gait, standing_feet(solver))
-    q0 = anymal.standing_configuration(solver.model)
-    sched = mpc.schedule_at(0.0)
-    solver.set_solution(q0, torch.zeros_like(q0[1:]), schedule=sched)
-    solver.init_constraints(sched)
-    return mpc, q0
-
-
-def run_closed_loop(device, periods, timings=None):
-    """``tools/accuracy_oracle.py::run_closed_loop`` on the port: f64 and
-    f32 MPCs see the states that the f64 torques drive through the pinned-
-    contact simulator (f64). Returns the f64 and f32 u0 of every period."""
-    gait = it.TrotGait(t_start=CL_GAIT_START)
-    mpcs = {dtype: closed_loop_solver(dtype, device, gait)[0]
-            for dtype in (torch.float64, torch.float32)}
-    ref = mpcs[torch.float64]
-    m, cm, device = ref.solver.model, ref.solver.cm, ref.solver.device
-    q = ref.solver.solution.q[0].clone()
-    v = torch.zeros(m.nv, dtype=torch.float64, device=device)
-    u0s = {dtype: [] for dtype in mpcs}
-    t = 0.0
-    for _ in range(periods):
-        for dtype, mpc in mpcs.items():
-            sync(device)
-            t0 = time.perf_counter()
-            u0, _ = mpc.step(t, q.to(dtype), v.to(dtype))
-            u0s[dtype].append(u0.double().cpu())
-            if timings is not None:
-                timings[dtype].append(1e3 * (time.perf_counter() - t0))
-        active, feet = gait.build_sequence(ref.feet0, t, t + 1.0).status_at(t)
-        sync(device)
-        t0 = time.perf_counter()
-        q, v = it.pinned_contact_step(m, cm, q, v,
-                                      u0s[torch.float64][-1].to(device),
-                                      torch.as_tensor(active), feet, CL_DT)
-        sync(device)
-        if timings is not None:
-            timings["simulator"].append(1e3 * (time.perf_counter() - t0))
-        t += CL_DT
-    return u0s
-
-
-def sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def tracking_error(law, device):
     """tests/test_mpc.py::test_lqr_policy_interpolation_improves_tracking:
     standing (no events), a perturbed start, ZOH_PERIODS control periods of
@@ -1477,14 +1250,14 @@ def phase_closed_loop(gpu):
     then the ZOH-against-LQR tracking comparison. Returns the launches."""
     timings = {torch.float64: [], torch.float32: [], "simulator": []}
     reset_launches()
-    u0s = run_closed_loop("cuda", CL_PERIODS, timings)
+    u0s = closed_loop_u0("cuda", CL_PERIODS, timings)
     launches = read_launches("plain", 2 * CL_PERIODS)
     total = dict(launches)
     u64, u32 = u0s[torch.float64], u0s[torch.float32]
     if not all(bool(torch.isfinite(u).all()) for u in u64 + u32):
         raise AssertionError("closed loop: non-finite torque")
     per_period = [float((a - b).abs().max()) for a, b in zip(u32, u64)]
-    cpu = run_closed_loop("cpu", CL_CPU_PERIODS)[torch.float64]
+    cpu = closed_loop_u0("cpu", CL_CPU_PERIODS)[torch.float64]
     card_cpu = max(float((a - b).abs().max()) for a, b in zip(u64, cpu))
     if not card_cpu <= CL_TOL:
         raise AssertionError(f"closed loop: f64 card and CPU u0 differ by "
@@ -1885,12 +1658,6 @@ def phase_parallel_riccati(gpu, gen):
 # multi-process scale-out on the card: torch.distributed at world size 1
 # ---------------------------------------------------------------------------
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def tensor_fields(obj):
     """The tensor fields of a Solution or UpdateStats (dicts flattened)."""
     out = {}
@@ -1924,8 +1691,8 @@ def phase_distributed(gpu):
     update in turns); ``mean_kkt_error`` through NCCL; ``BatchedMPC`` at
     B=4096 with and without the mesh; ``scaling_report`` on the trot step.
     Returns the launches."""
-    distributed.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
-                           process_id=0)
+    distributed.initialize(f"127.0.0.1:{scaling_evidence.free_port()}",
+                           num_processes=1, process_id=0)
     try:
         backend, world = tdist.get_backend(), tdist.get_world_size()
         if (backend, world) != ("nccl", 1):
@@ -2210,6 +1977,128 @@ def phase_examples(gpu):
         raise AssertionError(f"LQR tracks worse than ZOH: {policy}")
     return total
 
+# ---------------------------------------------------------------------------
+# the measurement tools
+# ---------------------------------------------------------------------------
+
+def phase_tools(gpu):
+    """The eight tools on the card, one line each: the per-phase profile
+    and the device's idle share of whole updates (the trace's count of the
+    hand kernel against the wrappers' counters, and both against the
+    configuration's launches), the top device operations, FLOPs and bytes
+    per update, the accuracy cases against their bars, the linearization's
+    sub-phases, the kernel bench, the first-call profile, the scaling
+    report. Returns the launches of the tools that drive the solver."""
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def counted(fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        for k in total:
+            total[k] += WRAPPERS[k].launches
+        return out, time.perf_counter() - t0
+
+    prof, seconds = counted(lambda: runtime_profile.profile(TOOL_BATCHES,
+                                                            "cuda"))
+    write_json(prof, TOOLS_OUT / "runtime_profile.json", None)
+    for key, row in prof["device_idle_share"].items():
+        config = "plain" if key.startswith("main_path") else "line_search"
+        want = sum(LAUNCHES_PER_UPDATE[config].values())
+        if row["chol_kernels_per_update"] != want or not (
+                0.0 <= row["idle_share"] <= 1.0):
+            raise AssertionError(f"runtime_profile {key}: {row}")
+    emit(phase="tools", tool="runtime_profile", gpu=gpu, seconds=seconds,
+         **{k: prof[k] for k in ("per_phase_ms", "device_ms", "launches",
+                                 "device_idle_share")})
+
+    tc, seconds = counted(lambda: trace_capture.capture(
+        BATCH, TOOLS_OUT / f"trace_b{BATCH}", "cuda"))
+    write_json(tc, TOOLS_OUT / "trace_capture.json", None)
+    emit(phase="tools", tool="trace_capture", gpu=gpu, seconds=seconds,
+         batch=BATCH, updates=tc["updates"],
+         device_ms_per_update=tc["device_ms_per_update"],
+         kernels_per_update=tc["kernels_per_update"],
+         device_op_names=tc["device_op_names"],
+         top_ops_per_update=[[name[:120], *rest] for name, *rest
+                             in tc["top_ops_per_update"][:12]])
+
+    mfu, seconds = counted(lambda: mfu_report.report((BATCH,), "cuda"))
+    write_json(mfu, TOOLS_OUT / "mfu_report.json", None)
+    run = mfu["runs"][0]
+    if run["kernel_launches"] != sum(LAUNCHES_PER_UPDATE["plain"].values()):
+        raise AssertionError(f"mfu_report: {run['kernel_launches']} kernel "
+                             "launches logged in one update")
+    emit(phase="tools", tool="mfu_report", gpu=gpu, seconds=seconds, **{
+        k: run[k] for k in (
+            "batch", "flops_per_update", "hbm_bytes_per_update",
+            "aten_flops", "aten_bytes", "kernel_flops", "kernel_bytes",
+            "aten_ops", "kernel_launches",
+            "arithmetic_intensity_flop_per_byte",
+            "machine_balance_flop_per_byte", "host_ms_per_update",
+            "device_busy_ms_per_update", "over_host_time",
+            "over_device_time")})
+
+    acc, seconds = counted(lambda: accuracy_oracle.oracle("cuda"))
+    write_json(acc, TOOLS_OUT / "accuracy_oracle.json", None)
+    cases = acc["cases"]
+    for case, bar in ACC_BARS.items():
+        if not cases[case]["max_abs_u0_err"] <= bar:
+            raise AssertionError(f"accuracy {case}: max|u0 - u0_ref| = "
+                                 f"{cases[case]['max_abs_u0_err']:.3e} "
+                                 f"above {bar:g}")
+    emit(phase="tools", tool="accuracy_oracle", gpu=gpu, seconds=seconds,
+         cases={k: {**{f: v[f] for f in ("max_abs_u0_err", "max_abs_u_err",
+                                         "u_scale") if f in v},
+                    "f32_kkt_at_budget": v.get("f32_kkt_at_budget"),
+                    "ref_kkt_f64": v.get("ref_kkt_f64"),
+                    "bar": ACC_BARS.get(k)} for k, v in cases.items()},
+         closed_loop_per_step=cases["closed_loop_trot"][
+             "per_step_max_abs_u0_err"])
+
+    lin, seconds = counted(lambda: linearize_profile.profile(LIN_INSTANCES,
+                                                             "cuda"))
+    write_json(lin, TOOLS_OUT / "linearize_profile.json", None)
+    key = f"linearize_subphases_ms_at_{LIN_INSTANCES}_instances"
+    emit(phase="tools", tool="linearize_profile", gpu=gpu, seconds=seconds,
+         instances=LIN_INSTANCES, host_ms=lin[key],
+         device_ms=lin["device_ms"], launches=lin["launches"])
+
+    t0 = time.perf_counter()
+    bench = chol_kernel_bench.bench(BENCH_BATCH, "cuda")
+    write_json(bench, TOOLS_OUT / "chol_kernel_bench.json", None)
+    for row in bench["rows"]:
+        if row["backend"].startswith("kernel") and not (
+                row["max_abs_err"] <= KERNEL_TOL[torch.float32]):
+            raise AssertionError(f"chol_kernel_bench: {row}")
+    emit(phase="tools", tool="chol_kernel_bench", gpu=gpu,
+         seconds=time.perf_counter() - t0, rows=bench["rows"])
+
+    # first calls mean something only in a process that has made none
+    t0 = time.perf_counter()
+    path = TOOLS_OUT / "compile_profile.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "idocp_tpu_torch.tools.compile_profile",
+         "--out", str(path)], cwd=TOOLS_OUT.parents[1], capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"compile_profile failed:\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    emit(phase="tools", tool="compile_profile", gpu=gpu,
+         seconds=time.perf_counter() - t0,
+         components=json.loads(path.read_text())["components"])
+
+    t0 = time.perf_counter()
+    scaling = scaling_evidence.evidence(
+        str(TOOLS_OUT / "scaling_evidence.json"), "cuda")
+    report = scaling["solves_per_s"]
+    if not all(np.isfinite(v) and v > 0 for v in report.values()):
+        raise AssertionError(f"scaling_evidence: {report}")
+    emit(phase="tools", tool="scaling_evidence", gpu=gpu,
+         seconds=time.perf_counter() - t0, setting=scaling["setting"],
+         workload=scaling["workload"], solves_per_s=report)
+    return total
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2255,6 +2144,8 @@ def main():
         phase_launches = phase(gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
     phase_dynamics(gpu)
+    phase_launches = phase_tools(gpu)
+    launches = {k: launches[k] + phase_launches[k] for k in launches}
 
     print(gpu)
     kernels = []

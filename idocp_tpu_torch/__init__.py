@@ -17,9 +17,9 @@ benchmark utilities, and everything below them, down to the hand-written CUDA
 kernel behind ``ops.chol_tri_inv`` and ``ops.chol_rescue_tri_inv``; the
 split of the scenario batch over processes (``make_mesh``,
 ``parallel.distributed``, one process per card on ``torch.distributed``), the
-rigid-body dynamics (``robot.dynamics``), the hand-built ANYmal and the four
-examples (``idocp_tpu_torch.examples``). Every public name of the twin is
-exported.
+rigid-body dynamics (``robot.dynamics``), the hand-built ANYmal, the four
+examples (``idocp_tpu_torch.examples``) and the eight measurement tools
+(``idocp_tpu_torch.tools``). Every public name of the twin is exported.
 """
 from .constraints.components import (
     ConstraintComponent, ContactNormalForce, FrictionCone,

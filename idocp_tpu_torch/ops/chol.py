@@ -23,7 +23,9 @@ triangular matrix whose strict upper triangle is 0:
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor it
 runs its plain PyTorch version (``chol_tri_inv_reference``,
 ``chol_rescue_tri_inv_reference``), the same recurrence in batched tensor
-code. Each wrapper counts its launches in ``<wrapper>.launches``.
+code. Each wrapper counts its launches in ``<wrapper>.launches`` and, while
+``<wrapper>.shapes`` is a list, appends the (batch, n, dtype) of each launch
+to it (``tools.mfu_report`` counts the kernel's work from them).
 
 ``chol``, ``tri_inv`` and ``chol_rescue`` are plain batched PyTorch (column /
 row loops over n): in the JAX package they are ordinary traced code outside
@@ -160,6 +162,8 @@ def _run(wrapper, plain, A: torch.Tensor, extra_argtypes=(), *extra):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
+    if wrapper.shapes is not None:
+        wrapper.shapes.append((A.numel() // (n * n), n, dtype))
     return out
 
 
@@ -179,3 +183,5 @@ def chol_rescue_tri_inv(G: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
 
 chol_tri_inv.launches = 0
 chol_rescue_tri_inv.launches = 0
+chol_tri_inv.shapes = None
+chol_rescue_tri_inv.shapes = None

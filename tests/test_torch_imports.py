@@ -1,8 +1,9 @@
 """The port stands alone: importing ``idocp_tpu_torch`` and every sub-module
 in a fresh interpreter pulls in neither JAX nor the JAX package, builds or
-loads no CUDA library, and its entry points (the examples' ``main`` and the
-multi-process bring-up among them) refuse to run when no CUDA device is
-present instead of carrying on on the CPU."""
+loads no CUDA library, and its entry points (the examples' and the
+measurement tools' ``main`` and the multi-process bring-up among them)
+refuse to run when no CUDA device is present instead of carrying on on the
+CPU."""
 import json
 import pathlib
 import re
@@ -48,6 +49,10 @@ from idocp_tpu_torch.parallel import distributed
 from idocp_tpu_torch.examples import (anymal_mpc_trot, anymal_ocp_benchmark,
                                       iiwa14_ocp_benchmark,
                                       iiwa14_parnmpc_benchmark)
+from idocp_tpu_torch.tools import (accuracy_oracle, chol_kernel_bench,
+                                   compile_profile, linearize_profile,
+                                   mfu_report, runtime_profile,
+                                   scaling_evidence, trace_capture)
 
 def raises(fn):
     try:
@@ -101,6 +106,14 @@ print(json.dumps({
         "anymal_mpc_trot.main": raises(anymal_mpc_trot.main),
         "anymal_mpc_trot.run_policy_comparison": raises(
             anymal_mpc_trot.run_policy_comparison),
+        "runtime_profile.main": raises(lambda: runtime_profile.main([])),
+        "trace_capture.main": raises(lambda: trace_capture.main([])),
+        "mfu_report.main": raises(lambda: mfu_report.main([])),
+        "accuracy_oracle.main": raises(accuracy_oracle.main),
+        "linearize_profile.main": raises(lambda: linearize_profile.main([])),
+        "compile_profile.main": raises(lambda: compile_profile.main([])),
+        "chol_kernel_bench.main": raises(lambda: chol_kernel_bench.main([])),
+        "scaling_evidence.main": raises(scaling_evidence.main),
     },
 }))
 """
@@ -130,7 +143,11 @@ def test_every_module_imports_without_jax(probe):
         "utils.benchmarker", "robot.dynamics", "parallel.distributed",
         "examples", "examples.anymal_ocp_benchmark",
         "examples.iiwa14_ocp_benchmark", "examples.iiwa14_parnmpc_benchmark",
-        "examples.anymal_mpc_trot")}
+        "examples.anymal_mpc_trot", "tools", "tools._workloads",
+        "tools.runtime_profile", "tools.trace_capture", "tools.mfu_report",
+        "tools.accuracy_oracle", "tools.linearize_profile",
+        "tools.compile_profile", "tools.chol_kernel_bench",
+        "tools.scaling_evidence")}
     assert expected <= set(probe["modules"])
 
 
