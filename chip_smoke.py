@@ -26,6 +26,10 @@ bit against the meshless one, ``mean_kkt_error`` through NCCL, ``BatchedMPC``
 at B=4096 with and without the mesh, ``scaling_report``. The four examples
 at their twins' sizes, and ``robot/dynamics.py`` at 4096 random
 configurations (``mass_matrix`` against ``crba``, the card against the CPU).
+The port's bench (``python -m idocp_tpu_torch.bench``, the twin of
+``bench.py``) in fresh processes with its defaults, the parallel recursion and
+the line search, each line checked, then each setting in this process with its
+launches counted.
 The eight measurement tools of ``idocp_tpu_torch/tools/``, once each: the
 device's idle share of whole updates, the top device operations, FLOPs and
 bytes per update, the accuracy oracle's cases against their bars, the
@@ -45,6 +49,7 @@ import dataclasses
 import importlib
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -56,7 +61,7 @@ import torch
 import torch.distributed as tdist
 
 import idocp_tpu_torch as it
-from idocp_tpu_torch import ops
+from idocp_tpu_torch import bench, ops
 from idocp_tpu_torch.examples import (anymal_mpc_trot, anymal_ocp_benchmark,
                                       iiwa14_ocp_benchmark,
                                       iiwa14_parnmpc_benchmark)
@@ -211,6 +216,17 @@ ACC_BARS = {"standing": 1e-4, "standing_ship": 1e-4, "iiwa_unconstr": 1e-4,
             "iiwa_limits": 1e-4, "trot": 1e-3, "trot_ship": 1e-3}
 U0_TOL = 1e-3
 SOLVE_U0_TOL = 1e-6
+# The port's bench, each setting in a fresh process as a user runs it (its
+# first update is then the process's first): the defaults, BENCH_PAR=1 and
+# BENCH_LS=1 (the search on its default 2 trials, whose grid adds the impulse
+# slots' 2 factorizations as the 8-trial grid does); then each in this
+# process for BENCH_COUNTED_ITERS timed updates with the launches counted.
+BENCH_RUNS = (("defaults", {}, "plain"),
+              ("parallel", {"BENCH_PAR": "1"}, "parallel"),
+              ("line_search", {"BENCH_LS": "1"}, "line_search"))
+BENCH_KEYS = {"metric", "value", "unit", "batch", "iters", "riccati",
+              "compile_s", "total_wall_s", "device"}
+BENCH_COUNTED_ITERS = 2
 # evaluate_all at the current point against the update's own (cost0, viol0)
 # in f32: both sum some 2 000 terms of the same residuals, computed by the
 # value-only and the derivative code paths; |difference| <= this * (1 + |value|)
@@ -2100,6 +2116,57 @@ def phase_tools(gpu):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the bench
+# ---------------------------------------------------------------------------
+
+def checked_bench_line(stdout, knobs):
+    """The bench's one JSON line; raises unless it has exactly the expected
+    keys, no warning, every update asked for and a positive rate."""
+    lines = stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines:\n{stdout}")
+    line = json.loads(lines[0])
+    if "warning" in line or set(line) != BENCH_KEYS:
+        raise AssertionError(f"bench line {line}, keys {sorted(BENCH_KEYS)}")
+    if line["iters"] < bench.settings_from_env(knobs).iters or not (
+            line["value"] > 0):
+        raise AssertionError(f"bench line {line}")
+    return line
+
+
+def phase_bench(gpu):
+    """``python -m idocp_tpu_torch.bench`` on the card, one line per
+    setting, then the same settings in this process with the launches
+    counted. Returns those launches."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    for name, knobs, _ in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "idocp_tpu_torch.bench"],
+            cwd=pathlib.Path(__file__).resolve().parent, env={**env, **knobs},
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"bench {name} exited {proc.returncode}:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        emit(phase="bench", run=name, gpu=gpu, knobs=knobs,
+             seconds=time.perf_counter() - t0,
+             line=checked_bench_line(proc.stdout, knobs))
+    total = dict.fromkeys(WRAPPERS, 0)
+    for name, knobs, config in BENCH_RUNS:
+        knobs = {**knobs, "BENCH_ITERS": str(BENCH_COUNTED_ITERS)}
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            bench.main("cuda", environ=knobs)
+        launches = read_launches(config, BENCH_COUNTED_ITERS + 1)
+        emit(phase="bench", run=name, part="launches", gpu=gpu, knobs=knobs,
+             seconds=time.perf_counter() - t0, launches=launches,
+             line=checked_bench_line(out.getvalue(), knobs))
+        total = {k: total[k] + launches[k] for k in total}
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2144,8 +2211,9 @@ def main():
         phase_launches = phase(gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
     phase_dynamics(gpu)
-    phase_launches = phase_tools(gpu)
-    launches = {k: launches[k] + phase_launches[k] for k in launches}
+    for phase in (phase_tools, phase_bench):
+        phase_launches = phase(gpu)
+        launches = {k: launches[k] + phase_launches[k] for k in launches}
 
     print(gpu)
     kernels = []

@@ -1,9 +1,9 @@
 """The port stands alone: importing ``idocp_tpu_torch`` and every sub-module
 in a fresh interpreter pulls in neither JAX nor the JAX package, builds or
-loads no CUDA library, and its entry points (the examples' and the
-measurement tools' ``main`` and the multi-process bring-up among them)
-refuse to run when no CUDA device is present instead of carrying on on the
-CPU."""
+loads no CUDA library, and its entry points (the examples', the
+measurement tools' and the bench's ``main`` and the multi-process bring-up
+among them) refuse to run when no CUDA device is present instead of carrying
+on on the CPU."""
 import json
 import pathlib
 import re
@@ -44,7 +44,7 @@ from idocp_tpu_torch.ops import _build
 from idocp_tpu_torch.hybrid import native
 from idocp_tpu_torch.models import anymal, iiwa14
 from idocp_tpu_torch.hybrid.schedule import static_schedule
-from idocp_tpu_torch import convert
+from idocp_tpu_torch import bench, convert
 from idocp_tpu_torch.parallel import distributed
 from idocp_tpu_torch.examples import (anymal_mpc_trot, anymal_ocp_benchmark,
                                       iiwa14_ocp_benchmark,
@@ -114,6 +114,7 @@ print(json.dumps({
         "compile_profile.main": raises(lambda: compile_profile.main([])),
         "chol_kernel_bench.main": raises(lambda: chol_kernel_bench.main([])),
         "scaling_evidence.main": raises(scaling_evidence.main),
+        "bench.main": raises(bench.main),
     },
 }))
 """
@@ -147,7 +148,7 @@ def test_every_module_imports_without_jax(probe):
         "tools.runtime_profile", "tools.trace_capture", "tools.mfu_report",
         "tools.accuracy_oracle", "tools.linearize_profile",
         "tools.compile_profile", "tools.chol_kernel_bench",
-        "tools.scaling_evidence")}
+        "tools.scaling_evidence", "bench")}
     assert expected <= set(probe["modules"])
 
 
