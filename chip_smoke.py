@@ -25,7 +25,8 @@ NCCL, the pod mesh, ``make_mesh``): the trot update through the mesh bit for
 bit against the meshless one, ``mean_kkt_error`` through NCCL, ``BatchedMPC``
 at B=4096 with and without the mesh, ``scaling_report``. The four examples
 at their twins' sizes, and ``robot/dynamics.py`` at 4096 random
-configurations (``mass_matrix`` against ``crba``, the card against the CPU).
+configurations of the two ANYmal builders, iiwa14 and a floating chain with a
+prismatic joint (``mass_matrix`` against ``crba``, the card against the CPU).
 The port's bench (``python -m idocp_tpu_torch.bench``, the twin of
 ``bench.py``) in fresh processes with its defaults, the parallel recursion and
 the line search, each line checked, then each setting in this process with its
@@ -1840,9 +1841,33 @@ def phase_distributed(gpu):
 # rigid-body dynamics: robot/dynamics.py at 4096 configurations
 # ---------------------------------------------------------------------------
 
+def mixed_model(dtype=torch.float64, device="cuda"):
+    """Floating base + revolute + prismatic + revolute chain with a tip frame
+    (the JAX package's ``tests/test_spatial.py::_mixed_model``): the only
+    robot here that runs the prismatic branches of ``robot/spatial.py``."""
+    b = model_mod.ModelBuilder("mixed")
+    base = b.add_body("base", -1, model_mod.FREE, mass=3.0,
+                      com=(0.02, 0.0, 0.05), inertia=0.05 * np.eye(3))
+    l1 = b.add_body("l1", base, model_mod.REVOLUTE,
+                    placement_pos=(0.2, 0.1, 0.0),
+                    placement_rpy=(0.2, 0.0, 0.1), axis=(0.0, 1.0, 0.0),
+                    mass=1.0, com=(0.0, 0.0, -0.1), inertia=0.01 * np.eye(3))
+    l2 = b.add_body("l2", l1, model_mod.PRISMATIC,
+                    placement_pos=(0.0, 0.0, -0.25),
+                    placement_rpy=(0.0, 0.3, 0.0), axis=(0.0, 0.0, 1.0),
+                    mass=0.7, com=(0.0, 0.01, -0.05),
+                    inertia=0.005 * np.eye(3))
+    l3 = b.add_body("l3", l2, model_mod.REVOLUTE,
+                    placement_pos=(0.05, 0.0, -0.2), axis=(1.0, 0.0, 0.0),
+                    mass=0.4, inertia=0.002 * np.eye(3))
+    b.add_frame("tip", l3, pos=(0.0, 0.0, -0.15))
+    return b.build(dtype=dtype, device=device)
+
+
 DYNAMICS_ROBOTS = (("anymal", anymal.make_model, anymal.FOOT_FRAMES),
                    ("anymal_urdf", anymal.make_model_urdf, anymal.FOOT_FRAMES),
-                   ("iiwa14", iiwa14.make_model, ("ee_frame",)))
+                   ("iiwa14", iiwa14.make_model, ("ee_frame",)),
+                   ("mixed", mixed_model, ("tip",)))
 
 
 def dynamics_states(m, fids, batch):
@@ -1876,7 +1901,7 @@ def max_rel_err(x, ref):
 
 def phase_dynamics(gpu):
     """``robot/dynamics.py`` on the card at DYN_BATCH random configurations
-    of three robots: ``mass_matrix`` against ``crba`` in f64 and f32, the
+    of four robots: ``mass_matrix`` against ``crba`` in f64 and f32, the
     card's f64 ``rnea_derivatives``, ``mass_matrix`` and
     ``contact_velocity_jacobian`` against the CPU's on the first
     ``CPU_SCENARIOS``, and each function's ms in both types."""

@@ -57,6 +57,12 @@ def condense(quad: StageQuad, T_x, T_k, t0, F_x, F_w, xres, Cx_raw, Cw_raw, h):
     )
 
 
+def expand_primal(cs: CondensedStage, dx, du):
+    """Recover the eliminated block direction w_e = Wx dx + Wk du + w0
+    (reference: expandPrimal)."""
+    return _mv(cs.Wx, dx) + _mv(cs.Wk, du) + cs.w0
+
+
 def dual_rhs(quad: StageQuad, F_w, dx, du, dwe, lam_next, Cw_raw, xi):
     """Gradient of the stage Lagrangian w.r.t. w_e at the new iterate: the
     right-hand side of the dual-expansion solve E_we^T nu = -grad_e.

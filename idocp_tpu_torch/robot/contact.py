@@ -44,6 +44,10 @@ class ContactStatus:
             position, dtype=dtype, device=device))
 
 
+# An impulse status is structurally identical (mask + impact footholds);
+# reference keeps a separate ImpulseStatus class (robot/impulse_status.hpp).
+ImpulseStatus = ContactStatus
+
 
 @dataclasses.dataclass(frozen=True)
 class ContactModel:

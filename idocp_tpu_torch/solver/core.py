@@ -27,7 +27,7 @@ import torch
 
 from ..constraints import pdipm
 from ..hybrid.schedule import HorizonSchedule
-from ..ocp.condensing import condense, dual_rhs
+from ..ocp.condensing import condense, dual_rhs, expand_primal
 from ..ocp.data import Solution, TensorStruct
 from ..ocp.state_equation import contact_solve_T
 from ..riccati import parallel as riccati_parallel
@@ -89,7 +89,10 @@ def _bcast(flag, like):
 
 
 def _ftb(x, dx, tau):
-    """Fraction-to-boundary max step per scenario over a whole (B, ...) array."""
+    """Fraction-to-boundary max step per scenario over a whole (B, ...) array;
+    1 for a scenario with no elements, as the twin's."""
+    if x.numel() == 0:
+        return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     neg = dx < 0
     ratio = torch.where(neg, -tau * x / torch.where(neg, dx, -torch.ones_like(dx)),
                         torch.ones_like(x))
@@ -148,7 +151,7 @@ def make_direction_fn(model, options, linearize_all: Callable,
             P, s, pols = recursion.backward_recursion(
                 term_H, term_l, cs, lin.sw_mask, reg=reg)
             dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
-        dwe = _mv(cs.Wx, dx[:, :-1]) + _mv(cs.Wk, du) + cs.w0
+        dwe = expand_primal(cs, dx[:, :-1], du)
         return lin, term, cs, facs, P, s, dx, du, dxi, dwe, pols
 
     return direction

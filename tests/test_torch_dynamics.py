@@ -2,11 +2,15 @@
 q-based kinematics helpers, ``model.tangent_jacobian`` and the hand-built
 ANYmal against the JAX package, f64 on the CPU.
 
-Robots: iiwa14 and ANYmal from both builders. Three numpy-seeded states
+Robots: iiwa14, ANYmal from both builders, and a floating chain with a
+prismatic joint (the twin of ``tests/test_spatial.py::_mixed_model``, built
+by the same calls on both packages' ``ModelBuilder``). Three numpy-seeded states
 (q, v, a and contact forces) go through the JAX functions, traced once per
 robot in one jitted function mapped over the states, and through the port,
 called once on the (3, ...) stack. One more batched call (leading dims (4,))
-must equal the per-sample calls."""
+must equal the per-sample calls. The URDF loader is held against its twin on
+the JAX package's two hand-checkable URDFs (a fixed joint with a rotated
+inertial origin, a one-link floating base)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,12 +22,14 @@ from idocp_tpu.models import iiwa14 as j_iiwa
 from idocp_tpu.robot import dynamics as j_dyn
 from idocp_tpu.robot import kinematics as j_kin
 from idocp_tpu.robot import model as j_model
+from idocp_tpu.robot.urdf import load_urdf as j_load_urdf
 from idocp_tpu_torch import convert
 from idocp_tpu_torch.models import anymal as t_anymal
 from idocp_tpu_torch.models import iiwa14 as t_iiwa
 from idocp_tpu_torch.robot import dynamics as t_dyn
 from idocp_tpu_torch.robot import kinematics as t_kin
 from idocp_tpu_torch.robot import model as t_model
+from idocp_tpu_torch.robot.urdf import load_urdf as t_load_urdf
 
 # Closed forms here, forward-mode autodiff of a level-batched RNEA in the
 # twin, both in f64: they agree at round-off. The derivatives pass through
@@ -32,12 +38,38 @@ RTOL, ATOL = 1e-10, 1e-10
 DER_RTOL, DER_ATOL = 1e-9, 1e-9
 SEEDS = (0, 1, 2)
 
+
+
+def _mixed_model(mod, **build_kw):
+    """Floating base + revolute + PRISMATIC + revolute chain with a tip
+    frame, from ``mod.ModelBuilder`` (``mod`` is either package's
+    ``robot.model``)."""
+    b = mod.ModelBuilder("mixed")
+    base = b.add_body("base", -1, mod.FREE, mass=3.0, com=(0.02, 0.0, 0.05),
+                      inertia=0.05 * np.eye(3))
+    l1 = b.add_body("l1", base, mod.REVOLUTE, placement_pos=(0.2, 0.1, 0.0),
+                    placement_rpy=(0.2, 0.0, 0.1), axis=(0.0, 1.0, 0.0),
+                    mass=1.0, com=(0.0, 0.0, -0.1),
+                    inertia=0.01 * np.eye(3))
+    l2 = b.add_body("l2", l1, mod.PRISMATIC, placement_pos=(0.0, 0.0, -0.25),
+                    placement_rpy=(0.0, 0.3, 0.0), axis=(0.0, 0.0, 1.0),
+                    mass=0.7, com=(0.0, 0.01, -0.05),
+                    inertia=0.005 * np.eye(3))
+    l3 = b.add_body("l3", l2, mod.REVOLUTE, placement_pos=(0.05, 0.0, -0.2),
+                    axis=(1.0, 0.0, 0.0), mass=0.4,
+                    inertia=0.002 * np.eye(3))
+    b.add_frame("tip", l3, pos=(0.0, 0.0, -0.15))
+    return b.build(**build_kw)
+
+
 BUILDERS = {
     "iiwa14": (j_iiwa.make_model, t_iiwa.make_model, ("ee_frame",)),
     "anymal_urdf": (j_anymal.make_model_urdf, t_anymal.make_model_urdf,
                     tuple(j_anymal.FOOT_FRAMES)),
     "anymal": (j_anymal.make_model, t_anymal.make_model,
                tuple(j_anymal.FOOT_FRAMES)),
+    "mixed": (lambda: _mixed_model(j_model),
+              lambda **kw: _mixed_model(t_model, **kw), ("tip",)),
 }
 
 
@@ -176,7 +208,7 @@ def _both(name, parts=FULL):
     return tm, fids, x, j_out, _flat(_port_all(tm, fids, *x))
 
 
-@pytest.fixture(scope="module", params=["iiwa14", "anymal_urdf"])
+@pytest.fixture(scope="module", params=["iiwa14", "anymal_urdf", "mixed"])
 def robot(request):
     """(name, port model, frame ids, states, JAX and port results)."""
     return (request.param, *_both(request.param))
@@ -239,9 +271,8 @@ def test_handbuilt_anymal_inverse_dynamics_matches_twin():
                                rtol=RTOL, atol=ATOL)
 
 
-def test_handbuilt_anymal_is_the_twins_field_for_field():
-    jm = j_anymal.make_model()
-    tm = t_anymal.make_model(dtype=torch.float64, device="cpu")
+def _assert_same_model(jm, tm):
+    """Every field of the port's model equals the JAX model's, exactly."""
     fields = convert.model_to_numpy(convert.model_from_numpy(
         {k: (getattr(jm, k) if k in convert.MODEL_META_FIELDS
              else np.asarray(getattr(jm, k)))
@@ -252,6 +283,21 @@ def test_handbuilt_anymal_is_the_twins_field_for_field():
         assert ours[k] == fields[k], k
     for k in convert.MODEL_TENSOR_FIELDS:
         np.testing.assert_array_equal(ours[k], fields[k], err_msg=k)
+
+
+def test_handbuilt_anymal_is_the_twins_field_for_field():
+    _assert_same_model(j_anymal.make_model(),
+                       t_anymal.make_model(dtype=torch.float64, device="cpu"))
+
+
+def test_mixed_model_is_the_twins_field_for_field():
+    """The mixed prismatic model from both builders, and the copy that
+    chip_smoke.py runs on the card."""
+    import chip_smoke
+    jm = _mixed_model(j_model)
+    assert j_model.PRISMATIC in jm.joint_types
+    _assert_same_model(jm, _mixed_model(t_model, device="cpu"))
+    _assert_same_model(jm, chip_smoke.mixed_model(device="cpu"))
 
 
 def test_port_urdf_matches_handbuilt():
@@ -273,3 +319,86 @@ def test_port_urdf_matches_handbuilt():
                                t_dyn.crba(m_urdf, q).numpy(), atol=1e-10)
     np.testing.assert_allclose(t_dyn.rnea(m_hand, q, v, a).numpy(),
                                t_dyn.rnea(m_urdf, q, v, a).numpy(), atol=1e-10)
+
+
+# The twins of tests/test_urdf.py's hand-checkable URDFs, copied here.
+_TWO_LINK = """
+<robot name="two_link">
+  <link name="base"/>
+  <joint name="j1" type="revolute">
+    <origin xyz="0 0 0.5" rpy="0 0 0"/>
+    <parent link="base"/>
+    <child link="l1"/>
+    <axis xyz="0 1 0"/>
+    <limit lower="-1.5" upper="1.5" velocity="2.0" effort="10.0"/>
+  </joint>
+  <link name="l1">
+    <inertial>
+      <origin xyz="0 0 -0.25" rpy="0 0 1.5707963267948966"/>
+      <mass value="2.0"/>
+      <inertia ixx="0.02" ixy="0" ixz="0" iyy="0.04" iyz="0" izz="0.01"/>
+    </inertial>
+  </link>
+  <joint name="fuse" type="fixed">
+    <origin xyz="0 0 -0.5" rpy="0 0 0"/>
+    <parent link="l1"/>
+    <child link="tip"/>
+  </joint>
+  <link name="tip">
+    <inertial>
+      <origin xyz="0 0 0" rpy="0 0 0"/>
+      <mass value="1.0"/>
+      <inertia ixx="0.001" ixy="0" ixz="0" iyy="0.001" iyz="0" izz="0.001"/>
+    </inertial>
+  </link>
+</robot>
+"""
+
+_FLOATING_BODY = """
+<robot name="fb">
+  <link name="body">
+    <inertial>
+      <origin xyz="0.1 0 0" rpy="0 0 0"/>
+      <mass value="5.0"/>
+      <inertia ixx="0.1" ixy="0" ixz="0" iyy="0.2" iyz="0" izz="0.3"/>
+    </inertial>
+  </link>
+</robot>
+"""
+
+
+def test_port_urdf_fixed_joint_fusion_and_inertial_rotation():
+    """The twin of ``tests/test_urdf.py::
+    test_fixed_joint_fusion_and_inertial_rotation``: the fixed joint fuses
+    the tip into l1, the inertial origin's Rz(pi/2) swaps ixx and iyy, the
+    parallel-axis shifts add m d^2; every field equals the twin's."""
+    m = t_load_urdf(_TWO_LINK, device="cpu")
+    _assert_same_model(j_load_urdf(_TWO_LINK), m)
+    assert m.nq == m.nv == 1
+    np.testing.assert_allclose(float(m.mass[0]), 3.0)
+    np.testing.assert_allclose(m.com[0].numpy(), [0, 0, -1.0 / 3.0],
+                               atol=1e-12)
+    d1, d2 = -0.25 + 1.0 / 3.0, -0.5 + 1.0 / 3.0
+    shift = 2.0 * d1 ** 2 + 0.001 + 1.0 * d2 ** 2
+    np.testing.assert_allclose(
+        np.diag(m.inertia[0].numpy()),
+        [0.04 + shift, 0.02 + shift, 0.01 + 0.001], atol=1e-12)
+    p = t_kin.frame_positions(m, torch.zeros(1, dtype=torch.float64),
+                              (m.frame_id("tip"),))[0]
+    np.testing.assert_allclose(p.numpy(), [0, 0, 0.0], atol=1e-12)
+    np.testing.assert_allclose(float(m.u_limit[0]), 10.0)
+    np.testing.assert_allclose(float(m.v_limit[0]), 2.0)
+
+
+def test_port_urdf_floating_base_root_inertia():
+    """The twin of ``tests/test_urdf.py::test_floating_base_root_inertia``:
+    the free joint carries the root link's inertia, and a body falling at
+    gravity needs no generalized force."""
+    m = t_load_urdf(_FLOATING_BODY, floating_base=True, device="cpu")
+    _assert_same_model(j_load_urdf(_FLOATING_BODY, floating_base=True), m)
+    assert m.nq == 7 and m.nv == 6 and m.has_floating_base
+    np.testing.assert_allclose(float(m.mass[0]), 5.0)
+    np.testing.assert_allclose(m.com[0].numpy(), [0.1, 0, 0])
+    a = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, -9.81], dtype=torch.float64)
+    tau = t_dyn.rnea(m, m.neutral_q(), torch.zeros(6, dtype=torch.float64), a)
+    np.testing.assert_allclose(tau.numpy(), np.zeros(6), atol=1e-10)

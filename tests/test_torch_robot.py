@@ -231,3 +231,14 @@ def test_spatial_velocity_only_and_gravity_free_variants(models, states):
     jder = j_spatial.point_pva_derivatives(jf, jvel, jp, jfb, jJ, acc=False)
     close(tder[0][i], jder[0])
     close(tder[1][i], jder[1])
+
+
+def test_impulse_status_is_contact_status():
+    """As in the twin's ``robot/contact.py``, an impulse status is a contact
+    status: a module name, not an export of the package."""
+    import idocp_tpu.robot.contact as j_contact
+    import idocp_tpu_torch
+    from idocp_tpu_torch.robot import contact as t_contact
+    assert j_contact.ImpulseStatus is j_contact.ContactStatus
+    assert t_contact.ImpulseStatus is t_contact.ContactStatus
+    assert "ImpulseStatus" not in idocp_tpu_torch.__all__

@@ -461,6 +461,22 @@ def test_condense_and_dual_rhs(linearized):
             jlin.Cw_raw, _j(xi[i])), "dual_rhs")
 
 
+def test_expand_primal(linearized):
+    """w_e = Wx dx + Wk du + w0 on each condensed stage, against the twin."""
+    tlin, jlins = linearized
+    args = lambda lin: (lin.quad, lin.T_x, lin.T_k, lin.t0, lin.F_x, lin.F_w,
+                        lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
+    tcs = t_condensing.condense(*args(tlin))
+    rng = np.random.default_rng(5)
+    dx, du = rng.standard_normal((NS, 36)), rng.standard_normal((NS, 12))
+    tdwe = t_condensing.expand_primal(tcs, T(dx), T(du))
+    assert tdwe.shape == (NS, 30)
+    for i, jlin in enumerate(jlins):
+        jcs = j_condensing.condense(*args(jlin))
+        close(tdwe[i], j_condensing.expand_primal(jcs, _j(dx[i]), _j(du[i])),
+              "expand_primal")
+
+
 def test_terminal_quad(setup):
     s, x = setup, setup["inputs"]
     empty = {}
