@@ -4,6 +4,9 @@ the JAX package (ANYmal from its URDF, f64, 1e-10), then ``MPC.step_with_policy`
 and its feedback policy driving the simulator for three control periods of two
 substeps each in both packages (1e-7 / 1e-8), and the port's own check that
 the policy tracks better than a zero-order hold."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,9 @@ position / velocity / acceleration limits, on iiwa14 and on the floating-base
 ANYmal (where a convention error of the local SE(3) tangent would show).
 Same numpy-seeded inputs on both sides, f64 on the CPU; the port takes a batch
 of states, the JAX functions one state at a time, eagerly (no compile)."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,9 @@ called once on the (3, ...) stack. One more batched call (leading dims (4,))
 must equal the per-sample calls. The URDF loader is held against its twin on
 the JAX package's two hand-checkable URDFs (a fixed joint with a rotated
 inertial origin, a one-link floating base)."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

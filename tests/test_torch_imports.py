@@ -5,17 +5,23 @@ measurement tools' and the bench's ``main`` and the multi-process bring-up
 among them) refuse to run when no CUDA device is present instead of carrying
 on on the CPU. Every public top-level name of the JAX package, its tools, its
 examples and its bench has a twin in the port, bar an explicit list of
-deliberate omissions."""
+deliberate omissions. And every port test file caps torch's threads and
+bounds its waits on child processes (``tests/_torch_test_env.py``), by
+AST."""
 import ast
 import json
 import pathlib
 import re
-import subprocess
 import sys
+
+from _torch_test_env import run_python, tail
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+# the probe takes 2-3 s cold in the tier-1 run; the limit is 3 times that,
+# but no less than the 60 s a child Python may need on a loaded machine
+LIMIT_S = 60
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -125,9 +131,8 @@ print(json.dumps({
 
 @pytest.fixture(scope="module")
 def probe():
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
+    out = run_python(["-c", _PROBE], LIMIT_S, "the import probe")
+    assert out.returncode == 0, tail(out)
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
@@ -306,3 +311,100 @@ def test_every_public_name_has_a_twin():
     assert stale == {}
     assert set(DELIBERATE_OMISSIONS) <= {
         p.relative_to(ROOT).as_posix() for p in sources}
+
+
+HELPER = "_torch_test_env"
+RUNS = {"run", "call", "check_call", "check_output"}   # start, then wait
+STARTS = RUNS | {"Popen"}
+SPAWNS = {"spawn", "start_processes", "evidence"}   # start processes inside
+
+
+def _called(node):
+    """The last name of what a call calls."""
+    func = node.func
+    return func.attr if isinstance(func, ast.Attribute) else getattr(
+        func, "id", None)
+
+
+def _keyword(node, name):
+    return next((k.value for k in node.keywords if k.arg == name), None)
+
+
+def _subprocess_function(node, imported):
+    """The ``subprocess`` function a call names (``imported``: the names
+    the file imports from ``subprocess``), else None."""
+    func = node.func
+    if isinstance(func, ast.Attribute) and getattr(func.value, "id",
+                                                   None) == "subprocess":
+        return func.attr
+    return func.id if getattr(func, "id", None) in imported else None
+
+
+def _thread_faults(path, tree):
+    """The first import of anything outside the standard library must be
+    the helper's."""
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            module = node.names[0].name
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module
+        else:
+            continue
+        if module.split(".")[0] in sys.stdlib_module_names:
+            continue
+        return [] if module == HELPER else [
+            f"{path.name}:{node.lineno}: imports {module} before {HELPER}"]
+    return [f"{path.name}: never imports {HELPER}"]
+
+
+def _wait_faults(path, tree):
+    """Every child is started with the helper's environment and waited on
+    with a limit; code that spawns its own runs under the helper's
+    watchdog."""
+    imported = {a.asname or a.name for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)
+                and node.module == "subprocess" for a in node.names}
+    guarded = {id(inner) for node in ast.walk(tree)
+               if isinstance(node, ast.With) and any(
+                   isinstance(item.context_expr, ast.Call)
+                   and _called(item.context_expr) == "spawned_children_limit"
+                   for item in node.items)
+               for inner in ast.walk(node)}
+    faults = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        name, where = _called(node), f"{path.name}:{node.lineno}"
+        launched = _subprocess_function(node, imported)
+        env = _keyword(node, "env")
+        if launched in STARTS and not (isinstance(env, ast.Call)
+                                       and _called(env) == "child_env"):
+            faults.append(f"{where}: {name} without env=child_env(...)")
+        if (launched in RUNS or name == "communicate") and _keyword(
+                node, "timeout") is None:
+            faults.append(f"{where}: {name} without a timeout")
+        if name in SPAWNS and id(node) not in guarded:
+            faults.append(f"{where}: {name} outside spawned_children_limit")
+        if name in ("run_python", "wait_all") and (
+                len(node.args) < 3 or (isinstance(node.args[1], ast.Constant)
+                                       and node.args[1].value is None)):
+            faults.append(f"{where}: {name} without a limit")
+    return faults
+
+
+def test_port_tests_cap_threads_and_bound_waits():
+    """By AST, importing none of the files: every ``tests/test_torch_*.py``
+    imports ``tests/_torch_test_env.py`` (which caps torch's threads) before
+    anything outside the standard library, and every child process a port
+    test or the helper starts gets the helper's capped environment and a
+    limit on its wait, so a new port file cannot crowd the tier-1 run's
+    cores again or wait on a child without end."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 20
+    faults = []
+    for path in files + [ROOT / "tests" / f"{HELPER}.py"]:
+        tree = ast.parse(path.read_text())
+        if path.name != f"{HELPER}.py":
+            faults += _thread_faults(path, tree)
+        faults += _wait_faults(path, tree)
+    assert faults == []

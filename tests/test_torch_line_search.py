@@ -4,6 +4,9 @@ twins. The port takes a batch of scenarios at once (each with its own grid,
 filter memory and write pointer), the JAX functions one scenario at a time;
 same numpy-seeded inputs, f64 on the CPU. The chosen trial index and every
 flag must be equal; values agree to round-off."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,9 @@ for the rescue-ladder entry point, against the JAX package's
 ``tri_inv(chol_rescue(G, reg))``. Same numpy-seeded inputs on both sides, f64
 on the CPU. On a CPU tensor the port's ``chol_tri_inv`` and
 ``chol_rescue_tri_inv`` wrappers run the plain versions of the CUDA kernel."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ the constraints is not reached.
 import dataclasses
 import types
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import torch
 

@@ -19,6 +19,8 @@ one compile each."""
 import dataclasses
 import importlib
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

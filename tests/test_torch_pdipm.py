@@ -4,6 +4,9 @@
 the twin's hand case (``tests/test_cost_constraints.py::
 test_fraction_to_boundary``) and a component with no rows, for which both
 give a full step. f64 on the CPU."""
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ condensed horizon (N=4, two scenarios) with active switching rows on one
 stage. Same numpy-seeded inputs, f64 on the CPU."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

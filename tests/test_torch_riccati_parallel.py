@@ -8,6 +8,8 @@ Then what only the batched port has: slots chosen per scenario, a horizon
 without switching rows, a singular combination, scans of any length."""
 import functools
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

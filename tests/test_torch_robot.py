@@ -5,6 +5,8 @@ on both sides, f64 on the CPU; the port is called on a batch of states, the
 JAX functions on one state at a time."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

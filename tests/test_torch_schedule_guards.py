@@ -7,6 +7,8 @@ their counts from the host and are validated without a device read. ANYmal,
 f64 on the CPU; no JAX."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import numpy as np
 import pytest
 import torch

@@ -2,15 +2,19 @@
 the filter line search, the KKT residual, an impulse cost and impulse
 constraints (N=4, two perturbed scenarios, f64 on the CPU) through the JAX
 package and through ``idocp_tpu_torch``: successive Newton updates field for
-field, ``kkt_error``, ``solve`` with barrier continuation,
-``BatchedSolver.solve``, the LQR policy, ``set_solution_component`` and a
-frozen scenario under the line search.
+field, ``solve`` with barrier continuation, ``set_solution_component`` and a
+frozen scenario under the line search. ``kkt_error``,
+``BatchedSolver.solve`` and the LQR policy of the same problem are in
+tests/test_torch_solve_kkt_and_policy.py, which imports this file's fixture.
 
-One JAX solver serves the whole file (every distinct ``SolverOptions`` is a
-fresh compile of the whole update): the batched update is its single-scenario
+One JAX solver serves the whole file, and its update is the file's one JAX
+compile of a solver function (every distinct ``SolverOptions`` is a fresh
+compile of the whole update): the batched update is its single-scenario
 update called once per scenario, and the continuation test's barrier is the
 solver's own, so its sibling update is the cached one."""
 import dataclasses
+
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +25,7 @@ import idocp_tpu_torch as it
 from idocp_tpu.constraints import components as j_cons
 from idocp_tpu.cost.components import ConfigurationSpaceCost, ImpulseCost
 from idocp_tpu.models import anymal as j_anymal
-from idocp_tpu.parallel.batch import BatchedSolver, batch_solution
+from idocp_tpu.parallel.batch import batch_solution
 from idocp_tpu.robot import kinematics as j_kin
 from idocp_tpu.robot import model as j_model
 from idocp_tpu.robot.contact import ContactModel
@@ -264,27 +268,6 @@ def test_three_updates_match_jax_field_for_field(problem):
     assert len(gaps) == 3 * B and min(gaps) > 1e-6, gaps
 
 
-def test_kkt_error_matches_jax(problem):
-    j_solver, t_solver = problem["j_solver"], problem["t_solver"]
-    q, v = problem["q_b"][0], problem["v_b"][0]
-    j_kkt = j_solver.kkt_error(T0, q, v, problem["j_sched"])
-    t_kkt = t_solver.kkt_error(T0, q, v, problem["t_sched"])
-    np.testing.assert_allclose(t_kkt, j_kkt, rtol=RTOL, atol=ATOL)
-    # the batched getters, and the update's own kkt_error of the same iterate
-    bs = it.BatchedSolver(t_solver)
-    sol_b = it.batch_solution(t_solver.solution, B)
-    tq, tv = torch.from_numpy(problem["q_b"]), torch.from_numpy(problem["v_b"])
-    kkt_b = bs.kkt_error(sol_b, T0, tq, tv, problem["t_sched"])
-    assert kkt_b.shape == (B,)
-    np.testing.assert_allclose(float(kkt_b[0]), t_kkt, rtol=1e-12)
-    np.testing.assert_allclose(
-        float(bs.mean_kkt_error(sol_b, T0, tq, tv, problem["t_sched"])),
-        float(kkt_b.mean()), rtol=1e-12)
-    _, stats = bs.update(sol_b, T0, tq, tv, problem["t_sched"])
-    np.testing.assert_allclose(stats.kkt_error.numpy(), kkt_b.numpy(),
-                               rtol=1e-12)
-
-
 def test_solve_with_barrier_continuation_matches_jax(problem):
     """OCPSolver.solve with a one-entry barrier schedule: a Newton stage at
     mu to the loose tolerance, the filter reset, the final stage. The port
@@ -379,44 +362,6 @@ def test_sibling_update_at_another_barrier_equals_a_solver_built_at_it(problem):
         assert float(hist[2].barrier) != float(hist[1].barrier)
     finally:
         t_solver.solution = keep
-
-
-def test_batched_solve_matches_jax(problem):
-    """BatchedSolver.solve: per-scenario iteration counts, KKT errors and
-    convergence flags equal the JAX package's, converged scenarios frozen."""
-    j_sol_b = batch_solution(problem["j_solver"].solution, B)
-    t_sol_b, t_sched = _carry(j_sol_b, problem["j_sched"])
-    q_b, v_b = problem["q_b"], problem["v_b"]
-    tq, tv = torch.from_numpy(q_b), torch.from_numpy(v_b)
-    # one scenario meets this tolerance an iteration before the cap and is
-    # frozen from then on, the other runs into the cap
-    tol, cap = 1.0, 8
-    j_bs = BatchedSolver(problem["j_solver"], extra_axes=(None,))
-    t_bs = it.BatchedSolver(problem["t_solver"])
-    j_out = j_bs.solve(j_sol_b, T0, jnp.asarray(q_b), jnp.asarray(v_b),
-                       problem["j_sched"], tol=tol, max_iterations=cap)
-    t_out = t_bs.solve(t_sol_b, T0, tq, tv, t_sched, tol=tol,
-                       max_iterations=cap)
-    _assert_same(j_out[0], t_out[0])
-    np.testing.assert_array_equal(t_out[1].numpy(), np.asarray(j_out[1]))
-    np.testing.assert_allclose(t_out[2].numpy(), np.asarray(j_out[2]),
-                               rtol=RTOL, atol=ATOL)
-    np.testing.assert_array_equal(t_out[3].numpy(), np.asarray(j_out[3]))
-    assert t_out[1].dtype == torch.int32 and t_out[3].dtype == torch.bool
-    assert t_out[3].tolist() == [False, True]
-    assert int(t_out[1][1]) < int(t_out[1][0]) == cap
-    assert problem["t_solver"].host_reads <= int(t_out[1].max())
-
-
-def test_lqr_policy_matches_jax(problem):
-    q, v = problem["q_b"][1], problem["v_b"][1]
-    j_pol = problem["j_solver"].get_lqr_policy(T0, q, v, problem["j_sched"])
-    t_pol = problem["t_solver"].get_lqr_policy(T0, q, v, problem["t_sched"])
-    assert t_pol.K.shape == (N, 12, 36)
-    _assert_same(j_pol, t_pol)
-    back = convert.policy_from_numpy(convert.policy_to_numpy(t_pol),
-                                     dtype=torch.float64, device="cpu")
-    _assert_same(j_pol, back)
 
 
 def test_set_solution_component_matches_jax(problem):

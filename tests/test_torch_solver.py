@@ -6,6 +6,8 @@ solution and schedule are carried into the port by ``convert``; every
 ``Solution`` and ``UpdateStats`` field must agree."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

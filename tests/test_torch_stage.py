@@ -9,6 +9,8 @@ twins. Same numpy-seeded inputs, f64 on the CPU; the port takes both stages
 as one batch, the JAX functions one stage at a time."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

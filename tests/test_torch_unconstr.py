@@ -14,6 +14,8 @@ update is its single-scenario update called once per scenario, and the JAX
 stage linearization is read from its jitted direction function."""
 import dataclasses
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ import dataclasses
 import io
 import json
 
+import _torch_test_env  # noqa: F401  (first: caps torch's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
