@@ -25,6 +25,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .schedule import (TENSOR_FIELDS, ContactSequence, HorizonSchedule,
                        schedule_from_arrays, stack_schedules)
 
@@ -115,11 +116,12 @@ def discretize_arrays(sequences: List[ContactSequence], t0, T: float, N: int,
                imp_contact=np.zeros((B, N, nc), np.uint8),
                sw_contact=np.zeros((B, N, nc), np.uint8),
                sw_pos=np.zeros((B, N, nc, 3)))
-    lib.discretize_batch(
-        B, N, nc, t0, float(T), max_ev, n_events,
-        ev_time.reshape(-1), ev_active.reshape(-1), ev_pos.reshape(-1),
-        init_active.reshape(-1), init_pos.reshape(-1), float(min_dt_frac),
-        *(out[name].reshape(-1) for name in TENSOR_FIELDS))
+    with tracing.span("idocp.schedule.native"):
+        lib.discretize_batch(
+            B, N, nc, t0, float(T), max_ev, n_events,
+            ev_time.reshape(-1), ev_active.reshape(-1), ev_pos.reshape(-1),
+            init_active.reshape(-1), init_pos.reshape(-1), float(min_dt_frac),
+            *(out[name].reshape(-1) for name in TENSOR_FIELDS))
     return {name: (x.astype(bool) if x.dtype == np.uint8 else x)
             for name, x in out.items()}
 

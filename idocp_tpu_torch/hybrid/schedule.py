@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..robot.model import resolve_device
+from ..utils import tracing
 
 TENSOR_FIELDS = ("dt", "t_offset", "contact_active", "contact_pos", "imp_mask",
                  "imp_contact", "sw_contact", "sw_pos")
@@ -139,11 +140,13 @@ def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
     flt = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
                                     dtype=dtype, device=device)
     boo = lambda x: torch.as_tensor(np.asarray(x, dtype=bool), device=device)
-    return _with_counts(HorizonSchedule(
-        dt=flt(dt), t_offset=flt(t_offset),
-        contact_active=boo(contact_active), contact_pos=flt(contact_pos),
-        imp_mask=boo(imp_mask), imp_contact=boo(imp_contact),
-        sw_contact=boo(sw_contact), sw_pos=flt(sw_pos)), (n_imp, n_sw))
+    with tracing.span("idocp.schedule.upload"):
+        sched = HorizonSchedule(
+            dt=flt(dt), t_offset=flt(t_offset),
+            contact_active=boo(contact_active), contact_pos=flt(contact_pos),
+            imp_mask=boo(imp_mask), imp_contact=boo(imp_contact),
+            sw_contact=boo(sw_contact), sw_pos=flt(sw_pos))
+    return _with_counts(sched, (n_imp, n_sw))
 
 
 @dataclasses.dataclass

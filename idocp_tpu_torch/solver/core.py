@@ -15,7 +15,9 @@ take whatever the solver's stage functions take after the measured state (the
 contact family's schedule, nothing for the fixed-base family) as trailing
 arguments, as the twin's ``*extra``. A schedule with one row per scenario
 (``HorizonSchedule.batched``) is repeated for each trial of the grid; a shared
-one is passed as it is.
+one is passed as it is. The update and each of its phases run inside a span
+of ``utils/tracing.py`` (``idocp.update``, ``idocp.update.linearize``, ...),
+a shared no-op unless the program is traced.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..riccati import parallel as riccati_parallel
 from ..riccati import recursion
 from ..ocp.stage import chain_to_x
 from ..robot import model as model_mod
+from ..utils import tracing
 from . import line_search as ls_mod
 
 
@@ -132,26 +135,33 @@ def make_direction_fn(model, options, linearize_all: Callable,
     @torch.no_grad()
     def direction(sol: Solution, t, q_meas, v_meas, *extra,
                   named_blocks=False):
-        lin = linearize_all(sol, t, q_meas, v_meas, *extra,
-                            named_blocks=named_blocks)
-        term = terminal_fn(sol, t)
+        with tracing.span("idocp.update.linearize"):
+            lin = linearize_all(sol, t, q_meas, v_meas, *extra,
+                                named_blocks=named_blocks)
+        with tracing.span("idocp.update.terminal"):
+            term = terminal_fn(sol, t)
         term_l, term_H = term[1], term[2]
 
-        cs = condense(lin.quad, lin.T_x, lin.T_k, lin.t0,
-                      lin.F_x, lin.F_w, lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
+        with tracing.span("idocp.update.condense"):
+            cs = condense(lin.quad, lin.T_x, lin.T_k, lin.t0, lin.F_x,
+                          lin.F_w, lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
         facs = (lin.fac_LM, lin.fac_LS, lin.fac_Jm)
 
-        dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
-        dx0 = torch.cat([dq0, v_meas - sol.v[:, 0]], dim=-1)
-        reg = options.riccati_regularization
-        if options.parallel_riccati:
-            P, s, dx, du, dxi, pols = riccati_parallel.parallel_constrained(
-                term_H, term_l, cs, lin.sw_mask, max_sw_stages, dx0, reg=reg)
-        else:
-            P, s, pols = recursion.backward_recursion(
-                term_H, term_l, cs, lin.sw_mask, reg=reg)
-            dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
-        dwe = expand_primal(cs, dx[:, :-1], du)
+        with tracing.span("idocp.update.riccati"):
+            dq0 = model_mod.difference(model, sol.q[:, 0], q_meas)
+            dx0 = torch.cat([dq0, v_meas - sol.v[:, 0]], dim=-1)
+            reg = options.riccati_regularization
+            if options.parallel_riccati:
+                P, s, dx, du, dxi, pols = riccati_parallel.parallel_constrained(
+                    term_H, term_l, cs, lin.sw_mask, max_sw_stages, dx0,
+                    reg=reg)
+            else:
+                P, s, pols = recursion.backward_recursion(
+                    term_H, term_l, cs, lin.sw_mask, reg=reg)
+                dx, du, dxi = recursion.forward_rollout(dx0, cs, pols)
+        # the first of the update's two expansion spans
+        with tracing.span("idocp.update.expand"):
+            dwe = expand_primal(cs, dx[:, :-1], du)
         return lin, term, cs, facs, P, s, dx, du, dxi, dwe, pols
 
     return direction
@@ -176,66 +186,97 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
 
     @torch.no_grad()
     def update(sol: Solution, t, q_meas, v_meas, *extra):
+        with tracing.span("idocp.update"):
+            return _update(sol, t, q_meas, v_meas, *extra)
+
+    def _update(sol, t, q_meas, v_meas, *extra):
         lin, term, cs, _, P, s, dx, du, dxi, dwe, _ = direction(
             sol, t, q_meas, v_meas, *extra,
             named_blocks=options.compute_kkt_error)
         term_val, _, _, term_barrier, g_term, Jz_term, _ = term
         B = dx.shape[0]
         dx0 = dx[:, 0]                     # the rollout starts at (dq0, dv0)
-        lam_new = _mv(P, dx) + s                           # (B, N+1, 2nv)
-        nu_e = _expand_dual_all(model, w_split, lin, dx, du, dwe, lam_new,
-                                dxi)
+        with tracing.span("idocp.update.expand"):
+            lam_new = _mv(P, dx) + s                       # (B, N+1, 2nv)
+            nu_e = _expand_dual_all(model, w_split, lin, dx, du, dwe, lam_new,
+                                    dxi)
 
-        dz = torch.cat([dx[:, :-1], dwe, du], dim=-1)      # (B, N, nx+nw)
-        # per-component slack/dual expansion + fraction-to-boundary
-        alpha_p = torch.ones_like(term_val)
-        alpha_d = torch.ones_like(term_val)
-        ds_all, dnu_all = {}, {}
-        for name in lin.g:
-            dg = _mv(lin.Jz[name], dz)
-            ds, dnu = pdipm.expand(lin.g[name], sol.slack[name][:, :N],
-                                   sol.dual[name][:, :N], options.barrier, dg)
-            if name in g_term:
-                ds_t, dnu_t = pdipm.expand(
-                    g_term[name], sol.slack[name][:, N], sol.dual[name][:, N],
-                    options.barrier, _mv(Jz_term[name], dx[:, -1]))
-            else:
-                ds_t = torch.zeros_like(sol.slack[name][:, N])
-                dnu_t = torch.zeros_like(sol.dual[name][:, N])
-            ds_all[name] = torch.cat([ds, ds_t[:, None]], dim=1)
-            dnu_all[name] = torch.cat([dnu, dnu_t[:, None]], dim=1)
-            alpha_p = torch.minimum(alpha_p,
-                                    _ftb(sol.slack[name], ds_all[name], tau))
-            alpha_d = torch.minimum(alpha_d,
-                                    _ftb(sol.dual[name], dnu_all[name], tau))
+            dz = torch.cat([dx[:, :-1], dwe, du], dim=-1)  # (B, N, nx+nw)
+            # per-component slack/dual expansion + fraction-to-boundary
+            alpha_p = torch.ones_like(term_val)
+            alpha_d = torch.ones_like(term_val)
+            ds_all, dnu_all = {}, {}
+            for name in lin.g:
+                dg = _mv(lin.Jz[name], dz)
+                ds, dnu = pdipm.expand(lin.g[name], sol.slack[name][:, :N],
+                                       sol.dual[name][:, :N], options.barrier,
+                                       dg)
+                if name in g_term:
+                    ds_t, dnu_t = pdipm.expand(
+                        g_term[name], sol.slack[name][:, N],
+                        sol.dual[name][:, N], options.barrier,
+                        _mv(Jz_term[name], dx[:, -1]))
+                else:
+                    ds_t = torch.zeros_like(sol.slack[name][:, N])
+                    dnu_t = torch.zeros_like(sol.dual[name][:, N])
+                ds_all[name] = torch.cat([ds, ds_t[:, None]], dim=1)
+                dnu_all[name] = torch.cat([dnu, dnu_t[:, None]], dim=1)
+                alpha_p = torch.minimum(
+                    alpha_p, _ftb(sol.slack[name], ds_all[name], tau))
+                alpha_d = torch.minimum(
+                    alpha_d, _ftb(sol.dual[name], dnu_all[name], tau))
 
-        # Direction-finiteness freeze: a non-finite Newton direction (an
-        # extreme iterate can overwhelm even chol_rescue in f32) must STALL
-        # that scenario (zero step, iterate unchanged) instead of poisoning
-        # it (0 * NaN = NaN would otherwise leak through the slack/dual
-        # updates even at alpha = 0). One flag per scenario; the stalled
-        # scenario's next linearization restarts from the last finite iterate.
-        finite_dir = (_all_finite_b(dx) & _all_finite_b(du)
-                      & _all_finite_b(dwe) & _all_finite_b(lam_new)
-                      & _all_finite_b(nu_e) & _all_finite_b(dxi))
-        for name in ds_all:
-            finite_dir = (finite_dir & _all_finite_b(ds_all[name])
-                          & _all_finite_b(dnu_all[name]))
-        keep = lambda x, old: torch.where(_bcast(finite_dir, x), x, old)
-        zero = lambda x: keep(x, torch.zeros_like(x))
-        dx, du, dwe = zero(dx), zero(du), zero(dwe)
-        ds_all = {k: zero(v) for k, v in ds_all.items()}
-        dnu_all = {k: zero(v) for k, v in dnu_all.items()}
-        lam_new = keep(lam_new, torch.cat([sol.lmd, sol.gmm], dim=-1))
-        nu_e = keep(nu_e, torch.cat([sol.beta, sol.mu], dim=-1))
-        dxi = keep(dxi, sol.xi)
+            # Direction-finiteness freeze: a non-finite Newton direction (an
+            # extreme iterate can overwhelm even chol_rescue in f32) must
+            # STALL that scenario (zero step, iterate unchanged) instead of
+            # poisoning it (0 * NaN = NaN would otherwise leak through the
+            # slack/dual updates even at alpha = 0). One flag per scenario;
+            # the stalled scenario's next linearization restarts from the
+            # last finite iterate.
+            finite_dir = (_all_finite_b(dx) & _all_finite_b(du)
+                          & _all_finite_b(dwe) & _all_finite_b(lam_new)
+                          & _all_finite_b(nu_e) & _all_finite_b(dxi))
+            for name in ds_all:
+                finite_dir = (finite_dir & _all_finite_b(ds_all[name])
+                              & _all_finite_b(dnu_all[name]))
+            keep = lambda x, old: torch.where(_bcast(finite_dir, x), x, old)
+            zero = lambda x: keep(x, torch.zeros_like(x))
+            dx, du, dwe = zero(dx), zero(du), zero(dwe)
+            ds_all = {k: zero(v) for k, v in ds_all.items()}
+            dnu_all = {k: zero(v) for k, v in dnu_all.items()}
+            lam_new = keep(lam_new, torch.cat([sol.lmd, sol.gmm], dim=-1))
+            nu_e = keep(nu_e, torch.cat([sol.beta, sol.mu], dim=-1))
+            dxi = keep(dxi, sol.xi)
 
-        # direction components in primal space (nu_e above is (beta, mu), or
-        # beta alone for the fixed base, whose mu and f are empty)
-        if w_split == nv:      # w = (u, a): dwe is the torque step
-            u_dir, a_dir, f_dir = dwe, du, dwe[..., nv:]
-        else:                  # w = (a, f, u)
-            a_dir, f_dir, u_dir = dwe[..., :nv], dwe[..., nv:], du
+            # direction components in primal space (nu_e above is (beta,
+            # mu), or beta alone for the fixed base, whose mu and f are
+            # empty)
+            if w_split == nv:      # w = (u, a): dwe is the torque step
+                u_dir, a_dir, f_dir = dwe, du, dwe[..., nv:]
+            else:                  # w = (a, f, u)
+                a_dir, f_dir, u_dir = dwe[..., :nv], dwe[..., nv:], du
+
+            # current-iterate merit pair (cost+barrier, L1 violation); the
+            # inequality part counts actual infeasibility relu(g) only, not
+            # |g + s| (the measure of the evaluate_* functions, see
+            # stage.evaluate_contact_stage for the rationale)
+            cost = _sum_b(lin.cost) + term_val
+            barrier = _sum_b(lin.barrier) + term_barrier
+            cost0 = cost + barrier
+            viol0 = (_sum_b(lin.xres.abs()) + _sum_b(lin.e.abs())
+                     + _sum_b((lin.sw_mask * lin.h).abs()) + _sum_b(dx0.abs()))
+            for name in lin.g:
+                viol0 = viol0 + _sum_b(torch.clamp(lin.g[name], min=0.0))
+            for name in g_term:
+                viol0 = viol0 + _sum_b(torch.clamp(g_term[name], min=0.0))
+
+            # optional trust-radius cap (safeguard of the path without line
+            # search)
+            if math.isfinite(options.max_step_norm):
+                dmax = dx.abs().reshape(B, -1).amax(dim=1)
+                cap = options.max_step_norm / torch.clamp(
+                    dmax, min=options.max_step_norm)
+                alpha_p = torch.minimum(alpha_p, cap)
 
         eps = torch.finfo(sol.v.dtype).eps
 
@@ -259,27 +300,6 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
                 slack={k: torch.clamp(step(sol.slack[k], ds_all[k]), min=eps)
                        for k in sol.slack})
 
-        # current-iterate merit pair (cost+barrier, L1 violation); the
-        # inequality part counts actual infeasibility relu(g) only, not
-        # |g + s| (the measure of the evaluate_* functions, see
-        # stage.evaluate_contact_stage for the rationale)
-        cost = _sum_b(lin.cost) + term_val
-        barrier = _sum_b(lin.barrier) + term_barrier
-        cost0 = cost + barrier
-        viol0 = (_sum_b(lin.xres.abs()) + _sum_b(lin.e.abs())
-                 + _sum_b((lin.sw_mask * lin.h).abs()) + _sum_b(dx0.abs()))
-        for name in lin.g:
-            viol0 = viol0 + _sum_b(torch.clamp(lin.g[name], min=0.0))
-        for name in g_term:
-            viol0 = viol0 + _sum_b(torch.clamp(g_term[name], min=0.0))
-
-        # optional trust-radius cap (safeguard of the path without line search)
-        if math.isfinite(options.max_step_norm):
-            dmax = dx.abs().reshape(B, -1).amax(dim=1)
-            cap = options.max_step_norm / torch.clamp(
-                dmax, min=options.max_step_norm)
-            alpha_p = torch.minimum(alpha_p, cap)
-
         ls_accepted = torch.ones_like(finite_dir)
         # filter augmentation gate: only remember the pre-step iterate when
         # the step was NOT a plain cost-decrease step (conditional
@@ -302,59 +322,65 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
                     per_trial(v_meas), *_per_trial_extra(extra, K))
                 return costs.reshape(B, K), viols.reshape(B, K)
 
-            ap, ls_accepted, ls_by_cost, ls_trial = ls_mod.search(
-                eval_grid, alpha_p, options.line_search_alphas, cost0, viol0,
-                margin=options.line_search_margin,
-                filter_cost=sol.filter_cost, filter_viol=sol.filter_viol)
+            with tracing.span("idocp.update.search"):
+                ap, ls_accepted, ls_by_cost, ls_trial = ls_mod.search(
+                    eval_grid, alpha_p, options.line_search_alphas, cost0,
+                    viol0, margin=options.line_search_margin,
+                    filter_cost=sol.filter_cost, filter_viol=sol.filter_viol)
+            tracing.keep("idocp.update.ls_trial", ls_trial)
+            tracing.keep("idocp.update.ls_accepted", ls_accepted)
             ls_insert = torch.logical_not(ls_by_cost)
         else:
             ap = alpha_p
         ad = alpha_d
         ap1, ad1 = ap[:, None, None], ad[:, None, None]
 
-        # --- primal/dual update
-        stepped = apply_primal(ap)
-        # Dual safeguard in the manner of Ipopt's kappa_Sigma: keep each dual
-        # within [mu/(kappa s), kappa mu/s] so the complementarity product
-        # s*nu stays within kappa of the barrier target. Without it, f32
-        # duals compound through (dual*ds)/slack and overflow within a few
-        # iterations. kappa follows the dtype: wide enough never to bind in
-        # healthy f64 solves.
-        kappa = 0.01 / eps
-        slack_new = stepped["slack"]
-        dual_new = {
-            k: torch.minimum(
-                torch.maximum(sol.dual[k] + ad1 * dnu_all[k],
-                              options.barrier / (kappa * slack_new[k])),
-                kappa * options.barrier / slack_new[k])
-            for k in sol.dual}
-        fc_new, fv_new, fp_new = ls_mod.filter_insert(
-            sol.filter_cost, sol.filter_viol, sol.filter_ptr, cost0, viol0,
-            do=ls_insert)
-        new_sol = dataclasses.replace(
-            sol, **stepped,
-            lmd=sol.lmd + ap1 * (lam_new[..., :nv] - sol.lmd),
-            gmm=sol.gmm + ap1 * (lam_new[..., nv:] - sol.gmm),
-            beta=sol.beta + ap1 * (nu_e[..., :nv] - sol.beta),
-            mu=sol.mu + ap1 * (nu_e[..., nv:] - sol.mu),
-            xi=sol.xi + ap1 * (dxi - sol.xi),
-            dual=dual_new, filter_cost=fc_new, filter_viol=fv_new,
-            filter_ptr=fp_new)
+        with tracing.span("idocp.update.step"):
+            # --- primal/dual update
+            stepped = apply_primal(ap)
+            # Dual safeguard in the manner of Ipopt's kappa_Sigma: keep each
+            # dual within [mu/(kappa s), kappa mu/s] so the complementarity
+            # product s*nu stays within kappa of the barrier target. Without
+            # it, f32 duals compound through (dual*ds)/slack and overflow
+            # within a few iterations. kappa follows the dtype: wide enough
+            # never to bind in healthy f64 solves.
+            kappa = 0.01 / eps
+            slack_new = stepped["slack"]
+            dual_new = {
+                k: torch.minimum(
+                    torch.maximum(sol.dual[k] + ad1 * dnu_all[k],
+                                  options.barrier / (kappa * slack_new[k])),
+                    kappa * options.barrier / slack_new[k])
+                for k in sol.dual}
+            fc_new, fv_new, fp_new = ls_mod.filter_insert(
+                sol.filter_cost, sol.filter_viol, sol.filter_ptr, cost0, viol0,
+                do=ls_insert)
+            new_sol = dataclasses.replace(
+                sol, **stepped,
+                lmd=sol.lmd + ap1 * (lam_new[..., :nv] - sol.lmd),
+                gmm=sol.gmm + ap1 * (lam_new[..., nv:] - sol.gmm),
+                beta=sol.beta + ap1 * (nu_e[..., :nv] - sol.beta),
+                mu=sol.mu + ap1 * (nu_e[..., nv:] - sol.mu),
+                xi=sol.xi + ap1 * (dxi - sol.xi),
+                dual=dual_new, filter_cost=fc_new, filter_viol=fv_new,
+                filter_ptr=fp_new)
 
-        # a frozen (non-finite-direction) scenario must NOT look converged
-        # to the direction-norm convergence proxy
-        dirnorm = torch.where(
-            finite_dir, torch.sqrt(_sum_b(dx * dx) + _sum_b(du * du)),
-            torch.full_like(cost, float("inf")))
+            # a frozen (non-finite-direction) scenario must NOT look
+            # converged to the direction-norm convergence proxy
+            dirnorm = torch.where(
+                finite_dir, torch.sqrt(_sum_b(dx * dx) + _sum_b(du * du)),
+                torch.full_like(cost, float("inf")))
+            # a frozen step is also a rejected step for observability
+            alpha_primal = torch.where(finite_dir, ap, torch.zeros_like(ap))
         if options.compute_kkt_error:
-            kkt_err = kkt_error_from_lin(model, options, N, lin, term, sol,
-                                         q_meas, v_meas)
+            with tracing.span("idocp.update.kkt"):
+                kkt_err = kkt_error_from_lin(model, options, N, lin, term, sol,
+                                             q_meas, v_meas)
         else:  # hot path: direction norm as a cheap convergence proxy
             kkt_err = dirnorm
         stats = UpdateStats(
             cost=cost, barrier=barrier,
-            # a frozen step is also a rejected step for observability
-            alpha_primal=torch.where(finite_dir, ap, torch.zeros_like(ap)),
+            alpha_primal=alpha_primal,
             alpha_dual=ad,
             kkt_direction_norm=dirnorm,
             violation=viol0,

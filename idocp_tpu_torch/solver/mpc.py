@@ -6,7 +6,8 @@ near-verbatim copy). ``BatchedMPC`` gives every scenario its own gait phase:
 the schedules are built by the native batched discretizer and enter the
 batched update with a leading scenario axis; with a mesh, each rank builds
 and solves only its own block of scenarios. The module-level ``schedule_at``
-is ``MPC.schedule_at`` for a bare solver.
+is ``MPC.schedule_at`` for a bare solver. A step and a schedule run inside
+the spans ``idocp.mpc.step`` and ``idocp.schedule`` of ``utils/tracing.py``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..hybrid.native import discretize_batch
 from ..hybrid.schedule import ContactSequence, HorizonSchedule
 from ..parallel.batch import BatchedSolver
 from ..robot import model as model_mod
+from ..utils import tracing
 
 # leg index order matches models.anymal: LF, LH, RF, RH
 _PAIR_A = (0, 3)  # LF + RH
@@ -68,9 +70,11 @@ def schedule_at(solver, gait: TrotGait, feet0, t) -> HorizonSchedule:
     """The solver's horizon schedule for the window starting at ``t``:
     the gait's events over [t, t + T + 1] discretized on the solver's grid,
     dtype and device."""
-    seq = gait.build_sequence(np.asarray(feet0, float), t, t + solver.T + 1.0)
-    return seq.discretize(t, solver.T, solver.N, dtype=solver.dtype,
-                          device=solver.device)
+    with tracing.span("idocp.schedule"):
+        seq = gait.build_sequence(np.asarray(feet0, float), t,
+                                  t + solver.T + 1.0)
+        return seq.discretize(t, solver.T, solver.N, dtype=solver.dtype,
+                              device=solver.device)
 
 
 class MPC:
@@ -88,8 +92,9 @@ class MPC:
 
     def step(self, t, q, v):
         """One update at the measured state: (u0 (nu,), stats)."""
-        stats = self.solver.update_solution(t, q, v, self.schedule_at(t))
-        return self.solver.solution.u[0], stats
+        with tracing.span("idocp.mpc.step"):
+            stats = self.solver.update_solution(t, q, v, self.schedule_at(t))
+            return self.solver.solution.u[0], stats
 
     def step_with_policy(self, t, q, v):
         """``update_solution`` and the stage-0 LQR feedback policy around the
@@ -100,10 +105,11 @@ class MPC:
         order state feedback that tracks the plan between control updates
         instead of holding u0 (zero-order hold)."""
         solver = self.solver
-        sched = self.schedule_at(t)
-        stats = solver.update_solution(t, q, v, sched)
-        sol = solver.solution
-        K0 = solver.get_lqr_policy(t, q, v, sched).K[0]
+        with tracing.span("idocp.mpc.step"):
+            sched = self.schedule_at(t)
+            stats = solver.update_solution(t, q, v, sched)
+            sol = solver.solution
+            K0 = solver.get_lqr_policy(t, q, v, sched).K[0]
         u0, q0s, v0s = sol.u[0], sol.q[0], sol.v[0]
         model, kw = solver.model, dict(dtype=solver.dtype,
                                        device=solver.device)
@@ -156,13 +162,20 @@ class BatchedMPC:
     def schedules_at(self, t) -> HorizonSchedule:
         """The batched schedule (fields (B_local, N, ...)) of the window at
         t, on the solver's device and dtype."""
-        seqs = self.sequences_at(t)
-        return discretize_batch(seqs, np.full(len(seqs), t), self.solver.T,
-                                self.solver.N, dtype=self.solver.dtype,
-                                device=self.solver.device)
+        with tracing.span("idocp.schedule"):
+            seqs = self.sequences_at(t)
+            sched = discretize_batch(seqs, np.full(len(seqs), t),
+                                     self.solver.T, self.solver.N,
+                                     dtype=self.solver.dtype,
+                                     device=self.solver.device)
+            # freeing B sequences takes host time too: inside the span
+            del seqs
+        return sched
 
     def step(self, t, sol_b, q_b, v_b):
         """One warm-started Newton iteration per local scenario; returns (new
         batched Solution, first-interval torques (B_local, nu), stats)."""
-        sol_b, stats = self.bs.update(sol_b, t, q_b, v_b, self.schedules_at(t))
-        return sol_b, sol_b.u[:, 0], stats
+        with tracing.span("idocp.mpc.step"):
+            sol_b, stats = self.bs.update(sol_b, t, q_b, v_b,
+                                          self.schedules_at(t))
+            return sol_b, sol_b.u[:, 0], stats
