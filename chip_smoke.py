@@ -1013,9 +1013,10 @@ def schedule_stats(sched):
 
 def timed_step(mpc, t, sol_b, q_b, v_b):
     """``BatchedMPC.step`` in its two halves, each ending in a
-    synchronisation: the host's schedule (Python sequences, the native
-    discretizer, the copy to the card) and the update. Returns (solution,
-    u0, stats, (schedule ms, update ms, schedule_stats))."""
+    synchronisation: the host's schedule (the gait's events of every
+    scenario, the native discretizer, the copy to the card) and the update.
+    Returns (solution, u0, stats, (schedule ms, update ms,
+    schedule_stats))."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sched = mpc.schedules_at(t)
@@ -1098,7 +1099,8 @@ def phase_batched_mpc(gpu):
     del mpc, sol_b, history
 
     # (c) 4096 scenarios: each step's host schedule and its update, timed
-    # apart; the host schedule once more in its three pieces
+    # apart; the host schedule once more in its three pieces, and in the
+    # three of its batched path
     offsets = random_offsets(MPC_BIG)
     mpc, sol_b, q_b, v_b = build_mpc(MPC_BIG, torch.float32, "cuda",
                                      options_for(False, False), offsets)
@@ -1122,7 +1124,9 @@ def phase_batched_mpc(gpu):
     if not bool(torch.isfinite(sol_b.u).all()
                 and torch.isfinite(stats.cost).all()):
         raise AssertionError("4096 scenarios: non-finite result")
-    pieces = {"sequences": [], "discretize": [], "to_device": []}
+    pieces = {"sequences": [], "discretize": [], "to_device": [],
+              "events": [], "native": [], "upload": []}
+    gait = mpc.gait
     for k in range(MPC_STEPS):
         t = MPC_DT * k
         t0 = time.perf_counter()
@@ -1135,7 +1139,22 @@ def phase_batched_mpc(gpu):
                              dtype=solver.dtype, device=solver.device)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        for key, dt in zip(pieces, (t1 - t0, t2 - t1, t3 - t2)):
+        del seqs
+        # the batched path of schedules_at: the events of all scenarios at
+        # once, the native call on them, the upload
+        t4 = time.perf_counter()
+        events = gait.event_arrays(mpc.feet0, gait.t_start + mpc.local_offsets,
+                                   t, t + solver.T + 1.0)
+        t5 = time.perf_counter()
+        arrays = native.discretize_event_arrays(events, np.full(MPC_BIG, t),
+                                                solver.T, solver.N)
+        t6 = time.perf_counter()
+        schedule_from_arrays(*(arrays[f] for f in SCHEDULE_FIELDS),
+                             dtype=solver.dtype, device=solver.device)
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        for key, dt in zip(pieces, (t1 - t0, t2 - t1, t3 - t2,
+                                    t5 - t4, t6 - t5, t7 - t6)):
             pieces[key].append(1e3 * dt)
     del sol_b, stats
 

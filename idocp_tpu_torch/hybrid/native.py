@@ -85,14 +85,12 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def discretize_arrays(sequences: List[ContactSequence], t0, T: float, N: int,
-                      min_dt_frac: float = 0.1) -> dict:
-    """The native discretizer on the host: B contact sequences at per-scenario
-    window starts t0 (B,) (or one scalar) -> numpy arrays keyed by the
-    ``HorizonSchedule`` field names, each with a leading batch axis."""
-    lib = load()
+def pack_sequences(sequences: List[ContactSequence]) -> dict:
+    """B contact sequences packed into the native discretizer's event
+    arrays: ``n_events`` (B,), ``ev_time`` (B, max_ev), ``ev_active`` (B,
+    max_ev, nc), ``ev_pos`` (B, max_ev, nc, 3), ``init_active`` (B, nc),
+    ``init_pos`` (B, nc, 3), zero past each scenario's events."""
     B, nc = len(sequences), sequences[0].nc
-    t0 = np.ascontiguousarray(np.broadcast_to(np.asarray(t0, np.float64), (B,)))
     max_ev = max(1, max(len(s.events) for s in sequences))
     n_events = np.zeros(B, np.int64)
     ev_time = np.zeros((B, max_ev), np.float64)
@@ -108,7 +106,58 @@ def discretize_arrays(sequences: List[ContactSequence], t0, T: float, N: int,
             ev_pos[b, e] = ev.position
         init_active[b] = s._init_active
         init_pos[b] = s._init_position
+    return dict(n_events=n_events, ev_time=ev_time, ev_active=ev_active,
+                ev_pos=ev_pos, init_active=init_active, init_pos=init_pos)
 
+
+def pack_events(times, valid, active, position, init_active, init_pos
+                ) -> dict:
+    """Candidate events of B scenarios packed as ``pack_sequences`` packs
+    sequences. Candidate c of scenario b happens when ``valid[b, c]``, at
+    ``times[b, c]`` (both (B, C)), into the contact set ``active[c]`` (nc,)
+    with the positions ``position[c]`` (nc, 3), which every scenario shares,
+    as it shares ``init_active`` (nc,) and ``init_pos`` (nc, 3). A row's
+    valid candidates, in their order, which must be time order, are its
+    events."""
+    times = np.asarray(times, np.float64)
+    valid = np.asarray(valid, bool)
+    active = np.asarray(active, np.uint8)
+    B, C = valid.shape
+    nc = active.shape[-1]
+    n_events = valid.sum(axis=1, dtype=np.int64)
+    max_ev = max(1, int(n_events.max(initial=0)))
+    # the candidate behind every event slot: slot max_ev takes the invalid
+    # ones, candidate C is all zeros
+    slot = np.where(valid, np.cumsum(valid, axis=1) - 1, max_ev)
+    src = np.full((B, max_ev + 1), C)
+    src[np.arange(B)[:, None], slot] = np.arange(C)
+    src = src[:, :max_ev]
+    ev_time = np.take_along_axis(
+        np.concatenate([times, np.zeros((B, 1))], axis=1), src, axis=1)
+    ev_active = np.concatenate([active, np.zeros((1, nc), np.uint8)])[src]
+    ev_pos = np.concatenate([np.asarray(position, np.float64),
+                             np.zeros((1, nc, 3))])[src]
+    later = np.arange(1, max_ev) < n_events[:, None]
+    if (later & (np.diff(ev_time, axis=1) <= 0)).any():
+        raise ValueError("events must be pushed in time order")
+    return dict(n_events=n_events, ev_time=ev_time, ev_active=ev_active,
+                ev_pos=ev_pos,
+                init_active=np.ascontiguousarray(np.broadcast_to(
+                    np.asarray(init_active, np.uint8), (B, nc))),
+                init_pos=np.ascontiguousarray(np.broadcast_to(
+                    np.asarray(init_pos, np.float64), (B, nc, 3))))
+
+
+def discretize_event_arrays(events: dict, t0, T: float, N: int,
+                            min_dt_frac: float = 0.1) -> dict:
+    """The native discretizer on the host: B scenarios' packed events (as
+    ``pack_sequences`` or ``pack_events`` make them) at per-scenario window
+    starts t0 (B,) (or one scalar) -> numpy arrays keyed by the
+    ``HorizonSchedule`` field names, each with a leading batch axis."""
+    lib = load()
+    B, max_ev, nc = events["ev_active"].shape
+    t0 = np.ascontiguousarray(np.broadcast_to(np.asarray(t0, np.float64), (B,)))
+    packed = {name: np.ascontiguousarray(x) for name, x in events.items()}
     out = dict(dt=np.zeros((B, N)), t_offset=np.zeros((B, N)),
                contact_active=np.zeros((B, N, nc), np.uint8),
                contact_pos=np.zeros((B, N, nc, 3)),
@@ -118,12 +167,32 @@ def discretize_arrays(sequences: List[ContactSequence], t0, T: float, N: int,
                sw_pos=np.zeros((B, N, nc, 3)))
     with tracing.span("idocp.schedule.native"):
         lib.discretize_batch(
-            B, N, nc, t0, float(T), max_ev, n_events,
-            ev_time.reshape(-1), ev_active.reshape(-1), ev_pos.reshape(-1),
-            init_active.reshape(-1), init_pos.reshape(-1), float(min_dt_frac),
+            B, N, nc, t0, float(T), max_ev, packed["n_events"],
+            *(packed[name].reshape(-1) for name in (
+                "ev_time", "ev_active", "ev_pos", "init_active", "init_pos")),
+            float(min_dt_frac),
             *(out[name].reshape(-1) for name in TENSOR_FIELDS))
     return {name: (x.astype(bool) if x.dtype == np.uint8 else x)
             for name, x in out.items()}
+
+
+def discretize_arrays(sequences: List[ContactSequence], t0, T: float, N: int,
+                      min_dt_frac: float = 0.1) -> dict:
+    """The native discretizer on the host: B contact sequences at per-scenario
+    window starts t0 (B,) (or one scalar) -> numpy arrays keyed by the
+    ``HorizonSchedule`` field names, each with a leading batch axis."""
+    return discretize_event_arrays(pack_sequences(sequences), t0, T, N,
+                                   min_dt_frac)
+
+
+def discretize_event_batch(events: dict, t0, T: float, N: int,
+                           min_dt_frac: float = 0.1, dtype=torch.float64,
+                           device="cuda") -> HorizonSchedule:
+    """``discretize_batch`` on packed events (as ``pack_sequences`` or
+    ``pack_events`` make them)."""
+    arrays = discretize_event_arrays(events, t0, T, N, min_dt_frac)
+    return schedule_from_arrays(*(arrays[name] for name in TENSOR_FIELDS),
+                                dtype=dtype, device=device)
 
 
 def discretize_batch(sequences: List[ContactSequence], t0, T: float, N: int,
@@ -139,6 +208,5 @@ def discretize_batch(sequences: List[ContactSequence], t0, T: float, N: int,
             seq.discretize(float(t0[b]), T, N, dtype=dtype, device=device,
                            min_dt_frac=min_dt_frac)
             for b, seq in enumerate(sequences))
-    arrays = discretize_arrays(sequences, t0, T, N, min_dt_frac)
-    return schedule_from_arrays(*(arrays[name] for name in TENSOR_FIELDS),
-                                dtype=dtype, device=device)
+    return discretize_event_batch(pack_sequences(sequences), t0, T, N,
+                                  min_dt_frac, dtype, device)

@@ -7,7 +7,8 @@ the schedules are built by the native batched discretizer and enter the
 batched update with a leading scenario axis; with a mesh, each rank builds
 and solves only its own block of scenarios. The module-level ``schedule_at``
 is ``MPC.schedule_at`` for a bare solver. A step and a schedule run inside
-the spans ``idocp.mpc.step`` and ``idocp.schedule`` of ``utils/tracing.py``.
+the spans ``idocp.mpc.step`` and ``idocp.schedule`` of ``utils/tracing.py``
+(``BatchedMPC``'s trot events in ``idocp.schedule.events``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..hybrid.native import discretize_batch
+from ..hybrid.native import discretize_event_batch, pack_events
 from ..hybrid.schedule import ContactSequence, HorizonSchedule
 from ..parallel.batch import BatchedSolver
 from ..robot import model as model_mod
@@ -64,6 +65,53 @@ class TrotGait:
             t += half
             pair_a = not pair_a
         return seq
+
+    def event_arrays(self, feet0: np.ndarray, t_starts, t0: float,
+                     t_end: float) -> dict:
+        """The packed events of B scenarios, each running this gait from its
+        own start t_starts[b]: what ``hybrid.native.pack_sequences`` makes of
+        ``[replace(self, t_start=s).build_sequence(feet0, t0, t_end) for s
+        in t_starts]``, bit for bit, built for all B at once. It walks
+        ``build_sequence``'s loop with one vectorised step per half cycle:
+        the same repeated sums of the times, and feet that advance at every
+        half cycle (they are the same in every scenario). A gait that
+        changes ``build_sequence`` changes this too: ``BatchedMPC`` builds
+        its schedules from this alone."""
+        feet0 = np.asarray(feet0, float)
+        t = np.array(t_starts, dtype=np.float64, ndmin=1)
+        B, nc = len(t), 4
+        half = self.swing_time + self.double_support_time
+        feet = feet0.copy()
+        down = np.ones(nc, bool)
+        lift_active = {a: ~np.isin(np.arange(nc), pair)
+                       for a, pair in ((True, _PAIR_A), (False, _PAIR_B))}
+        # candidates in push order: a lift and a touchdown per half cycle
+        times, valid, active, pos = [], [], [], []
+        pair_a = True
+        while True:
+            walking = t < t_end
+            if not walking.any():
+                break
+            t_td = t + self.swing_time
+            moved = feet.copy()
+            for i in (_PAIR_A if pair_a else _PAIR_B):
+                moved[i, 0] += self.step_length
+            lift = walking & (t > t0)
+            td = walking & (t_td > t0) & (t_td <= t_end)
+            if lift.any() or td.any():
+                times += [t, t_td]
+                valid += [lift, td]
+                active += [lift_active[pair_a], down]
+                pos += [feet, moved]
+            feet = moved
+            t = t + half            # a new array: the candidates keep t
+            pair_a = not pair_a
+        C = len(valid)
+        return pack_events(
+            np.stack(times, axis=1) if C else np.zeros((B, 0)),
+            np.stack(valid, axis=1) if C else np.zeros((B, 0), bool),
+            np.reshape(active, (C, nc)), np.reshape(pos, (C, nc, 3)),
+            down, feet0)
 
 
 def schedule_at(solver, gait: TrotGait, feet0, t) -> HorizonSchedule:
@@ -161,16 +209,18 @@ class BatchedMPC:
 
     def schedules_at(self, t) -> HorizonSchedule:
         """The batched schedule (fields (B_local, N, ...)) of the window at
-        t, on the solver's device and dtype."""
+        t, on the solver's device and dtype: the gait's packed events of all
+        local scenarios at once (span ``idocp.schedule.events``), then the
+        native discretizer."""
+        solver, gait = self.solver, self.gait
         with tracing.span("idocp.schedule"):
-            seqs = self.sequences_at(t)
-            sched = discretize_batch(seqs, np.full(len(seqs), t),
-                                     self.solver.T, self.solver.N,
-                                     dtype=self.solver.dtype,
-                                     device=self.solver.device)
-            # freeing B sequences takes host time too: inside the span
-            del seqs
-        return sched
+            with tracing.span("idocp.schedule.events"):
+                events = gait.event_arrays(
+                    self.feet0, gait.t_start + self.local_offsets, t,
+                    t + solver.T + 1.0)
+            return discretize_event_batch(events, t, solver.T, solver.N,
+                                          dtype=solver.dtype,
+                                          device=solver.device)
 
     def step(self, t, sol_b, q_b, v_b):
         """One warm-started Newton iteration per local scenario; returns (new

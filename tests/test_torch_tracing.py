@@ -28,6 +28,7 @@ TREES = {
     # (name, name of the enclosing span), in the order the spans open
     "trot_mpc": (
         [("idocp.mpc.step", None), ("idocp.schedule", "idocp.mpc.step"),
+         ("idocp.schedule.events", "idocp.schedule"),
          ("idocp.schedule.native", "idocp.schedule"),
          ("idocp.schedule.upload", "idocp.schedule"),
          ("idocp.update", "idocp.mpc.step")]
