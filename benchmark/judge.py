@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from . import traffic
-from .reference import gait as ref_gait
 
 FIELDS = ("q", "v", "a", "f", "u", "slack", "dual")
 
@@ -47,27 +46,30 @@ def rel_gap(a, b):
     return (a - b).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
-def warm_start(ref, cfg, mix, feet0, S):
+def warm_start(ref, cfg, mix, feet0, S, root):
+    """The reference's own warm start, on its own window at the mix's t0
+    (the gait's phase offset 0, as the program's warm start)."""
     spec, m = ref.spec, ref.spec.model
     kw = m.kw
     ws_q = torch.as_tensor(cfg["nominal_q"] if cfg["warm_start_q"] == "nominal"
                            else cfg["warm_start_q"], **kw)
     ws_sched = None
     if cfg["robot"]["contact_frames"]:
-        ws_sched = ref_gait.window(traffic.gait_of(cfg), feet0, float(mix["t0"]),
-                                   spec.T, spec.N)
+        ws_sched = traffic.reference_window(cfg, 0.0, feet0, float(mix["t0"]),
+                                            root)
     return ref.warm_start(ws_q, torch.zeros(m.nv, **kw), ws_sched, S,
                           spec.line_search)
 
 
 def follow(ref, cfg, mix, feet0, offsets, idx, times, q_in, v_in, pairs,
-           start, chunk=24):
+           start, root, chunk=24):
     """Gaps of the sampled steps: ``pairs`` is [(step, state before, state
     after)] with the sampled scenarios' rows; ``start`` the program's state
-    before the first step."""
+    before the first step; ``root`` the checkout whose gait modules the
+    configuration may name."""
     kw = ref.spec.model.kw
     S = len(idx)
-    own = warm_start(ref, cfg, mix, feet0, S)
+    own = warm_start(ref, cfg, mix, feet0, S, root)
     start_gap = max(rel_gap(start[k], own[k]) for k in FIELDS)
     u0, state = [], []
     for c0 in range(0, len(pairs), chunk):
@@ -75,8 +77,8 @@ def follow(ref, cfg, mix, feet0, offsets, idx, times, q_in, v_in, pairs,
         cat = lambda key, i: torch.cat([p[i][key] for p in part])
         st = {key: cat(key, 1) for key in part[0][1]}
         want = {key: cat(key, 2) for key in FIELDS}
-        schs = [traffic.reference_schedule(cfg, mix, feet0, times[k], offsets, idx, kw)
-                for k, _, _ in part]
+        schs = [traffic.reference_schedule(cfg, mix, feet0, times[k], offsets, idx,
+                                           kw, root) for k, _, _ in part]
         sch = {key: torch.cat([s[key] for s in schs]) for key in schs[0]}
         q = torch.cat([q_in[k] for k, _, _ in part]).to(torch.float64)
         v = torch.cat([v_in[k] for k, _, _ in part]).to(torch.float64)

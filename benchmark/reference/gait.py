@@ -1,15 +1,19 @@
-"""The trot's contact schedule over a receding window, for the reference.
+"""A contact schedule over a receding window, for the reference.
 
-The gait, as the configuration states it: diagonal pairs swing in turn (LF +
-RH first, then LH + RF; feet in the order LF, LH, RF, RH), each swing lasting
-``swing`` seconds and followed by ``double_support`` seconds on all four feet,
-the first lift at ``t_start``; a foot lands ``step_length`` further along x.
-A window [t0, t0 + T] of N stages opens with all four feet down at their
-first footholds; the gait's events after t0 follow. Each event inside the
-window moves the nearest stage boundary onto its time; a stage that starts
-with feet landing carries an impulse on those feet, and the stage before it
-the switching rows that put them on their footholds. With no gait (None)
-the robot stands: every foot down at its first foothold, no event.
+``window_of_events`` discretizes any gait: a window [t0, t0 + T] of N
+stages opens with every foot down at its first foothold, or as an event at
+t0 itself sets it; the gait's events after t0 follow. Each event inside the window moves the nearest stage
+boundary onto its time; a stage that starts with feet landing carries an
+impulse on those feet, and the stage before it the switching rows that put
+them on their footholds.
+
+``events`` is the trot, as the configuration states it: diagonal pairs
+swing in turn (LF + RH first, then LH + RF; feet in the order LF, LH, RF,
+RH), each swing lasting ``swing`` seconds and followed by
+``double_support`` seconds on all four feet, the first lift at
+``t_start``; a foot lands ``step_length`` further along x. With no gait
+(None) the robot stands: every foot down at its first foothold, no event.
+``window`` is the trot's window.
 """
 from __future__ import annotations
 
@@ -52,10 +56,11 @@ def _status(evs, feet0, t):
     return active, pos
 
 
-def window(gait, feet0, t0, T, N, min_dt_frac=0.1):
-    """The window's stages as numpy arrays: dt (N,), active (N, 4), ref
-    (N, 4, 3), imp (N,), imp_contact (N, 4), sw (N, 4), sw_pos (N, 4, 3)."""
-    evs = events(gait, feet0, t0, t0 + T + 1.0)
+def window_of_events(evs, feet0, t0, T, N, min_dt_frac=0.1):
+    """The window's stages of the events ``evs`` ([(time, active (nc,),
+    footholds (nc, 3))] from t0 on, in time order) as numpy arrays: dt (N,),
+    active (N, nc), ref (N, nc, 3), imp (N,), imp_contact (N, nc), sw
+    (N, nc), sw_pos (N, nc, 3)."""
     bounds = np.linspace(t0, t0 + T, N + 1)
     dt0 = T / N
     snapped = {}
@@ -93,3 +98,10 @@ def window(gait, feet0, t0, T, N, min_dt_frac=0.1):
                     out["sw"][i - 1] = new
                     out["sw_pos"][i - 1] = p
     return out
+
+
+def window(gait, feet0, t0, T, N, min_dt_frac=0.1):
+    """The trot's window: ``window_of_events`` of its events up to a second
+    past the window's end."""
+    return window_of_events(events(gait, feet0, t0, t0 + T + 1.0), feet0,
+                            t0, T, N, min_dt_frac)

@@ -4,8 +4,9 @@
         --seconds <s> --trace <0|1>
 
 The cell's configuration, traffic mix and metrics are found by name: the
-cell in ``BENCHMARK.json``, its configuration's file there and the builder
-it names in ``benchmark/builders/<builder>.py``, the mix in
+cell in ``BENCHMARK.json``, its configuration's file there, the builder it
+names in ``benchmark/builders/<builder>.py`` and the reference's gait it may
+name in ``benchmark/gaits/<reference_gait>.py`` (``traffic.py``), the mix in
 ``benchmark/traffic/<mix>.json`` and the loop it names in
 ``benchmark/loops/<loop>.py``, and each metric's reader in
 ``benchmark/metrics/<metric>.py``. Set-up builds
@@ -229,10 +230,6 @@ def main(argv=None, hooks=None):
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    found = forbidden_modules()
-    if found:
-        print(f"modules of JAX or the JAX package loaded: {found}", file=sys.stderr)
-        sys.exit(3)
 
     u_prog = np.stack(u_all)                                  # (K, B, nu)
     nonfinite = int((~np.isfinite(u_prog)).any(-1).sum())
@@ -240,7 +237,7 @@ def main(argv=None, hooks=None):
     ref = ref_ocp.Reference(ref_config.spec(cfg, rmodel, q_nom))
     ref_start = time.perf_counter()
     found = judge.follow(ref, cfg, mix, feet0, offsets, idx, times, q_in, v_in,
-                         pairs, start_state)
+                         pairs, start_state, root=root)
     ref_s = time.perf_counter() - ref_start
     gaps = found["u0_gap"]
     limits = cfg["correct"]["limits"]
@@ -259,6 +256,12 @@ def main(argv=None, hooks=None):
         value = program.load_part(root, "metrics", m["name"]).read(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    # every module is loaded by now: the program, the reference, the gait
+    # and the metric readers the checkout names
+    loaded = forbidden_modules()
+    if loaded:
+        print(f"modules of JAX or the JAX package loaded: {loaded}", file=sys.stderr)
+        sys.exit(3)
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
            "count": cell["chips"] if on_card else 0,

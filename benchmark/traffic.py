@@ -31,16 +31,28 @@ A mix is a JSON file under ``benchmark/traffic/`` with these parameters:
 Measured states are exogenous: drawn on the device from --seed, never from
 the program's output, and handed to the reference as they were to the
 program.
+
+The reference's own schedule is found by name too: a configuration may
+state ``"reference_gait": "<name>"``, and ``benchmark/gaits/<name>.py``
+then defines ``events(gait, offset, feet0, t0, t_end)``, the gait's events
+after t0 in time order ([(time, active (nc,), footholds (nc, 3))], from
+every foot down at feet0; an event at t0 itself sets the status a window
+opens with; ``gait`` is the configuration's ``gait`` as it stands,
+``offset`` the scenario's phase offset), in plain numpy and importing
+nothing of the program. Without the key the gait is the trot of
+``gait_of``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time
 
 import numpy as np
 import torch
 
+from .program import load_part
 from .reference import gait as ref_gait
 
 
@@ -114,7 +126,26 @@ def gait_of(cfg, offset=0.0):
                 step_length=g["step_length"])
 
 
-def reference_schedule(cfg, mix, feet0, t, offsets, idx, kw):
+@functools.lru_cache(maxsize=None)
+def _gait_part(root, name):
+    return load_part(root, "gaits", name)
+
+
+def reference_window(cfg, offset, feet0, t0, root):
+    """One scenario's window at t0 as the reference schedules it (numpy
+    arrays of ``gait.window_of_events``): the events of the gait the
+    configuration names, or of the trot of ``gait_of``, up to a second past
+    the window's end."""
+    T, N = float(cfg["horizon"]["T"]), int(cfg["horizon"]["N"])
+    name = cfg.get("reference_gait")
+    if name is None:
+        return ref_gait.window(gait_of(cfg, offset), feet0, t0, T, N)
+    evs = _gait_part(str(root), name).events(cfg["gait"], offset, feet0, t0,
+                                            t0 + T + 1.0)
+    return ref_gait.window_of_events(evs, feet0, t0, T, N)
+
+
+def reference_schedule(cfg, mix, feet0, t, offsets, idx, kw, root):
     """The reference's own schedule of the sampled scenarios at t, fields
     (S, N, ...): the gait's window, every contact down where there is no
     gait, or the plain grid of a fixed base."""
@@ -122,8 +153,8 @@ def reference_schedule(cfg, mix, feet0, t, offsets, idx, kw):
     S = len(idx)
     if not cfg["robot"]["contact_frames"]:
         return dict(dt=torch.full((S, N), T / N, **kw))
-    rows = [ref_gait.window(gait_of(cfg, 0.0 if offsets is None else offsets[b]),
-                            feet0, t, T, N) for b in idx]
+    rows = [reference_window(cfg, 0.0 if offsets is None else offsets[b],
+                             feet0, t, root) for b in idx]
     return {k: torch.as_tensor(np.stack([r[k] for r in rows]), **kw)
             for k in rows[0]}
 
@@ -192,5 +223,4 @@ class Loop:
 
 def make_loop(root, program, mix, offsets):
     """The loop the mix names, from ``benchmark/loops/<loop>.py``."""
-    from .program import load_part
     return load_part(root, "loops", mix["loop"]).Loop(program, mix, offsets)
