@@ -42,7 +42,7 @@ from .robot.contact import ContactModel, ContactStatus
 from .robot.model import (ModelBuilder, RobotModel, difference, integrate,
                           random_configuration)
 from .robot.urdf import load_urdf
-from .solver.mpc import MPC, BatchedMPC, TrotGait, schedule_at
+from .solver.mpc import MPC, BatchedMPC, JumpGait, TrotGait, schedule_at
 from .solver.ocp_solver import OCPSolver
 from .solver.options import SolverOptions
 from .solver.parnmpc_solver import ParNMPCSolver, UnconstrParNMPCSolver
@@ -68,7 +68,7 @@ __all__ = [
     "stack_schedules", "discretize_batch",
     "Solution", "zero_solution", "LQRPolicy", "SolverOptions",
     "OCPSolver", "UnconstrOCPSolver", "ParNMPCSolver", "UnconstrParNMPCSolver",
-    "TrotGait", "schedule_at", "MPC", "BatchedMPC", "BatchedSolver",
+    "TrotGait", "JumpGait", "schedule_at", "MPC", "BatchedMPC", "BatchedSolver",
     "batch_solution", "make_mesh", "pinned_contact_step",
     "benchmark_convergence", "benchmark_solver", "load_solution",
     "save_solution",

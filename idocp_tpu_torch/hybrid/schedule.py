@@ -134,9 +134,12 @@ def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
                          imp_contact, sw_contact, sw_pos, dtype=torch.float64,
                          device="cuda") -> HorizonSchedule:
     """HorizonSchedule from host arrays, shared (N, ...) or batched
-    (B, N, ...); the counts are taken here."""
+    (B, N, ...); the counts are taken here, and, while tracing is active,
+    the switching-row counters (``_keep_switching_rows``)."""
     device = resolve_device(device)
     n_imp, n_sw = count_stages(imp_mask, sw_contact)
+    if tracing.active():
+        _keep_switching_rows(np.asarray(sw_contact, dtype=bool))
     flt = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64),
                                     dtype=dtype, device=device)
     boo = lambda x: torch.as_tensor(np.asarray(x, dtype=bool), device=device)
@@ -147,6 +150,19 @@ def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
             imp_mask=boo(imp_mask), imp_contact=boo(imp_contact),
             sw_contact=boo(sw_contact), sw_pos=flt(sw_pos))
     return _with_counts(sched, (n_imp, n_sw))
+
+
+def _keep_switching_rows(sw_contact):
+    """The counters ``idocp.schedule.sw_rows``, the active switching rows
+    (3 per foot in ``sw_contact``) of each scenario-window summed over its
+    stages, and ``idocp.schedule.sw_block_rows``, the rows the serial
+    sweep's switching block holds there (N stages of 3 nc): (B,) or (1,)
+    arrays on the host, counted from the host mask (N, nc) or
+    (B, N, nc)."""
+    rows = 3 * sw_contact.sum(axis=(-2, -1), dtype=np.int64).reshape(-1)
+    tracing.keep("idocp.schedule.sw_rows", rows)
+    tracing.keep("idocp.schedule.sw_block_rows", np.full(
+        rows.shape, 3 * sw_contact.shape[-2] * sw_contact.shape[-1]))
 
 
 @dataclasses.dataclass

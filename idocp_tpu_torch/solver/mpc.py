@@ -2,13 +2,16 @@
 
 Twin of ``idocp_tpu/solver/mpc.py`` (``TrotGait``, ``MPC`` with ``step`` and
 ``step_with_policy``, ``BatchedMPC``; the gait is host-side numpy, a
-near-verbatim copy). ``BatchedMPC`` gives every scenario its own gait phase:
+near-verbatim copy). ``JumpGait``, a pronk with flight phases, has no twin.
+The drivers take either gait: what they use of one is ``build_sequence``,
+``event_arrays``, ``t_start`` and ``dataclasses.replace``. ``BatchedMPC``
+gives every scenario its own gait phase:
 the schedules are built by the native batched discretizer and enter the
 batched update with a leading scenario axis; with a mesh, each rank builds
 and solves only its own block of scenarios. The module-level ``schedule_at``
 is ``MPC.schedule_at`` for a bare solver. A step and a schedule run inside
 the spans ``idocp.mpc.step`` and ``idocp.schedule`` of ``utils/tracing.py``
-(``BatchedMPC``'s trot events in ``idocp.schedule.events``).
+(``BatchedMPC``'s gait events in ``idocp.schedule.events``).
 """
 from __future__ import annotations
 
@@ -114,10 +117,101 @@ class TrotGait:
             down, feet0)
 
 
-def schedule_at(solver, gait: TrotGait, feet0, t) -> HorizonSchedule:
+@dataclasses.dataclass
+class JumpGait:
+    """Periodic pronk schedule generator for a quadruped with 4 contacts:
+    all feet lift together at ``t_start + k * cycle_time()`` (k = 0, 1,
+    ...), fly for ``flight_time``, land together ``jump_length`` further
+    along x and stand for ``stance_time``; before ``t_start`` they stand at
+    their first footholds.
+
+    No twin: the JAX package has no gait with flight phases. Unlike
+    ``TrotGait``, whose windows open with every foot down at the first
+    footholds, a window of this gait opens with the gait's own status at
+    its start (in flight, no contact): its sequence holds the last event at
+    or before t0. Event 2k is the lift of cycle k and 2k + 1 its landing;
+    the events of a window are found from the cycle index at t0, not by
+    walking from ``t_start``, so a schedule costs the same at every t."""
+    flight_time: float = 0.2
+    stance_time: float = 0.25
+    jump_length: float = 0.0
+    t_start: float = 0.1
+
+    def cycle_time(self):
+        return self.flight_time + self.stance_time
+
+    def _time_of(self, t_start, e):
+        """The time of event e (int array) of a gait starting at t_start."""
+        lift = t_start + (e // 2) * self.cycle_time()
+        return np.where(e % 2 == 1, lift + self.flight_time, lift)
+
+    def _last_event(self, t_start, t):
+        """The index of the last event at or before t (-1 before the first
+        lift), elementwise over the starts t_start."""
+        cycle = self.cycle_time()
+        k = np.floor((t - t_start) / cycle).astype(np.int64)
+        # the division may round across a lift: settle k on the lift times
+        k = k - (t_start + k * cycle > t)
+        k = k + (t_start + (k + 1) * cycle <= t)
+        landed = t_start + k * cycle + self.flight_time <= t
+        return np.where(k < 0, -1, 2 * k + landed)
+
+    def _footholds(self, feet0, e):
+        """The footholds (..., 4, 3) after event e: the landings up to it."""
+        feet = np.broadcast_to(feet0, np.shape(e) + feet0.shape).copy()
+        feet[..., 0] = feet0[:, 0] + ((e + 1) // 2)[..., None] * self.jump_length
+        return feet
+
+    def _span(self, t_start, t0, t_end):
+        """(first, count) of the events a window's sequence holds: from the
+        last at or before t0 to the last at or before t_end."""
+        first = np.maximum(self._last_event(t_start, t0), 0)
+        return first, np.maximum(self._last_event(t_start, t_end) - first + 1, 0)
+
+    def build_sequence(self, feet0: np.ndarray, t0: float, t_end: float
+                       ) -> ContactSequence:
+        """The events over [t0, t_end] after every foot down at feet0 (4, 3):
+        the last event at or before t0, which sets the window's opening
+        status, then the lifts and landings after it."""
+        feet0 = np.asarray(feet0, float)
+        seq = ContactSequence(4, [True] * 4, feet0.copy())
+        first, count = self._span(self.t_start, t0, t_end)
+        for e in np.arange(first, first + count):
+            seq.push_back(self._time_of(self.t_start, e),
+                          np.full(4, e % 2 == 1), self._footholds(feet0, e))
+        return seq
+
+    def event_arrays(self, feet0: np.ndarray, t_starts, t0: float,
+                     t_end: float) -> dict:
+        """The packed events of B scenarios, each running this gait from its
+        own start t_starts[b]: what ``hybrid.native.pack_sequences`` makes of
+        ``[replace(self, t_start=s).build_sequence(feet0, t0, t_end) for s
+        in t_starts]``, bit for bit, built for all B at once from each
+        scenario's cycle index at t0."""
+        feet0 = np.asarray(feet0, float)
+        ts = np.array(t_starts, dtype=np.float64, ndmin=1)
+        B, nc = len(ts), 4
+        first, count = self._span(ts, t0, t_end)
+        max_ev = max(1, int(count.max(initial=0)))
+        slot = np.arange(max_ev)
+        valid = slot < count[:, None]
+        e = first[:, None] + slot
+        return dict(
+            n_events=count.astype(np.int64),
+            ev_time=np.where(valid, self._time_of(ts[:, None], e), 0.0),
+            ev_active=np.repeat((valid & (e % 2 == 1))[..., None], nc,
+                                axis=-1).astype(np.uint8),
+            ev_pos=np.where(valid[..., None, None],
+                            self._footholds(feet0, e), 0.0),
+            init_active=np.ones((B, nc), np.uint8),
+            init_pos=np.ascontiguousarray(np.broadcast_to(feet0, (B, nc, 3))))
+
+
+def schedule_at(solver, gait, feet0, t) -> HorizonSchedule:
     """The solver's horizon schedule for the window starting at ``t``:
-    the gait's events over [t, t + T + 1] discretized on the solver's grid,
-    dtype and device."""
+    the events of ``gait`` (a ``TrotGait`` or ``JumpGait``: its
+    ``build_sequence``) over [t, t + T + 1] discretized on the solver's
+    grid, dtype and device."""
     with tracing.span("idocp.schedule"):
         seq = gait.build_sequence(np.asarray(feet0, float), t,
                                   t + solver.T + 1.0)
@@ -127,9 +221,10 @@ def schedule_at(solver, gait: TrotGait, feet0, t) -> HorizonSchedule:
 
 class MPC:
     """Receding-horizon wrapper: rebuilds the schedule each control step and
-    performs one warm-started Newton iteration."""
+    performs one warm-started Newton iteration. ``gait``: a ``TrotGait`` or
+    ``JumpGait``, of which ``schedule_at`` uses ``build_sequence``."""
 
-    def __init__(self, solver, gait: TrotGait, feet0, t_end=1e9):
+    def __init__(self, solver, gait, feet0, t_end=1e9):
         self.solver = solver
         self.gait = gait
         self.feet0 = np.asarray(feet0, float)
@@ -175,14 +270,16 @@ class MPC:
 class BatchedMPC:
     """Receding-horizon driver over a batch of scenarios with PER-SCENARIO
     gait phases: scenario b runs the gait with t_start = gait.t_start +
-    phase_offsets[b]. Its schedules come from the native batched
-    discretizer and enter ``BatchedSolver.update`` with a leading batch
-    axis. With a ``mesh``, ``phase_offsets`` and ``batch`` stay global while
-    this rank builds the schedules of, and steps, only its own block of
-    scenarios (``local_offsets``)."""
+    phase_offsets[b]. ``gait`` is a ``TrotGait`` or ``JumpGait``: the
+    schedules come from its ``event_arrays`` through the native batched
+    discretizer (``sequences_at`` gives the same per scenario, through
+    ``dataclasses.replace`` and ``build_sequence``) and enter
+    ``BatchedSolver.update`` with a leading batch axis. With a ``mesh``,
+    ``phase_offsets`` and ``batch`` stay global while this rank builds the
+    schedules of, and steps, only its own block of scenarios
+    (``local_offsets``)."""
 
-    def __init__(self, solver, gait: TrotGait, feet0, phase_offsets,
-                 mesh=None):
+    def __init__(self, solver, gait, feet0, phase_offsets, mesh=None):
         self.solver = solver
         self.gait = gait
         self.feet0 = np.asarray(feet0, float)

@@ -34,6 +34,7 @@ from ..robot import spatial
 from ..robot.contact import ContactModel
 from ..robot import model as model_mod
 from ..robot.model import resolve_device
+from ..utils import tracing
 from .core import make_direction_fn, make_kkt_error_fn, make_update_fn
 from .newton_loop import newton_stage, reset_filter, solve_masked
 from .options import SolverOptions
@@ -249,7 +250,8 @@ class OCPSolver(_SolverCommon):
                       options=None) -> stage_mod.StageLin:
         """Stage linearizations of a batched solution, leading axes (B, N)."""
         B = sol.q.shape[0]
-        iq = self._imp_quants_all(sol, sched)
+        with tracing.span("idocp.update.linearize.impulse"):
+            iq = self._imp_quants_all(sol, sched)
         lin = stage_mod.linearize_contact_stage(
             self.model, self.cm, self.cost, self.constraints,
             options or self.options,

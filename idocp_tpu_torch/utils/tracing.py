@@ -19,9 +19,11 @@ No twin: the JAX package has no tracing of its own.
 
 ``keep(name, tensor)`` keeps, in either of the first two states, a
 reference to a tensor the program already computed, in a ring of the last
-``RING`` per name: no launch, no copy, no host read. ``counters()`` reads
-them back to the host. No span or counter changes a number the program
-computes.
+``RING`` per name: no launch, no copy, no host read. A counter the program
+has to compute for the purpose is computed only while ``active()`` holds,
+on the host from host arrays, and kept as a numpy array, which
+dispatches nothing. ``counters()`` reads them back to the host.
+No span or counter changes a number the program computes.
 
 Every name starts with ``idocp.``, so that none collides with an aten op.
 The program is traced from one thread.
@@ -98,10 +100,17 @@ def span(name):
     return OFF
 
 
+def active():
+    """True while the profiler records or ``enabled()`` holds: what a
+    counter costs to compute is then worth paying."""
+    return _profiler._is_profiler_enabled or _state.on
+
+
 def keep(name, tensor):
-    """Keep a reference to ``tensor`` under ``name`` while the profiler
-    records or ``enabled()`` holds: the last ``RING`` per name."""
-    if _profiler._is_profiler_enabled or _state.on:
+    """Keep a reference to ``tensor`` (or to a numpy array on the host)
+    under ``name`` while the profiler records or ``enabled()`` holds: the
+    last ``RING`` per name."""
+    if active():
         ring = _state.kept.get(name)
         if ring is None:
             ring = _state.kept[name] = collections.deque(maxlen=RING)
@@ -149,7 +158,8 @@ def summary():
 def counters():
     """{name: 1-D host tensor}: the tensors kept under each name, oldest
     first, flattened and joined on the host."""
-    return {name: torch.cat([t.reshape(-1).cpu() for t in ring])
+    return {name: torch.cat([torch.as_tensor(t).reshape(-1).cpu()
+                             for t in ring])
             for name, ring in _state.kept.items() if ring}
 
 

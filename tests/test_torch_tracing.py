@@ -31,8 +31,10 @@ TREES = {
          ("idocp.schedule.events", "idocp.schedule"),
          ("idocp.schedule.native", "idocp.schedule"),
          ("idocp.schedule.upload", "idocp.schedule"),
-         ("idocp.update", "idocp.mpc.step")]
-        + [(n, "idocp.update") for n in UPDATE + ["idocp.update.step"]]),
+         ("idocp.update", "idocp.mpc.step"),
+         ("idocp.update.linearize", "idocp.update"),
+         ("idocp.update.linearize.impulse", "idocp.update.linearize")]
+        + [(n, "idocp.update") for n in UPDATE[1:] + ["idocp.update.step"]]),
     "iiwa14_search": (
         [("idocp.update", None)]
         + [(n, "idocp.update") for n in UPDATE + [
@@ -92,7 +94,9 @@ def steps():
                         wl.standing_feet(bs.solver), [0.0, 0.2])
     arm, s_a, q_a, v_a = wl.build_iiwa(2, torch.float64, "cpu", True,
                                        n_horizon=6)
-    return {"trot_mpc": lambda: mpc.step(0.05, sol_b, q_b, v_b),
+    trot = lambda: mpc.step(0.05, sol_b, q_b, v_b)
+    trot.schedule = lambda: mpc.schedules_at(0.05)
+    return {"trot_mpc": trot,
             "iiwa14_search": lambda: arm.update(s_a, 0.0, q_a, v_a)}
 
 
@@ -135,6 +139,7 @@ def runs(steps, tmp_path_factory):
                          counters=counters, ranges=ranges,
                          kept_under_profiler=tracing.counters())
         tracing.reset()
+    out["trot_mpc"]["schedule"] = steps["trot_mpc"].schedule()
     return out
 
 
@@ -203,7 +208,15 @@ def test_outputs_and_aten_ops_equal_off_on_and_under_the_profiler(runs):
         stats = runs["iiwa14_search"]["got"]["off"][0][1]
         assert torch.equal(kept["idocp.update.ls_trial"], stats.ls_trial)
         assert torch.equal(kept["idocp.update.ls_accepted"], stats.ls_accepted)
-    assert runs["trot_mpc"]["counters"] == {}
+    # the schedule's switching rows, counted on the host from its masks
+    for key in ("counters", "kept_under_profiler"):
+        kept = runs["trot_mpc"][key]
+        assert set(kept) == {"idocp.schedule.sw_rows",
+                             "idocp.schedule.sw_block_rows"}
+        sched = runs["trot_mpc"]["schedule"]
+        assert torch.equal(kept["idocp.schedule.sw_rows"],
+                           3 * sched.sw_contact.sum((-2, -1)))
+        assert kept["idocp.schedule.sw_block_rows"].tolist() == [3 * 6 * 4] * 2
 
 
 def test_keep_is_bounded_and_counters_join_what_it_kept():
