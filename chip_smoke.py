@@ -36,11 +36,13 @@ device's idle share of whole updates, the top device operations, FLOPs and
 bytes per update, the accuracy oracle's cases against their bars, the
 linearization's sub-phases, the kernel bench, the first-call profile and the
 scaling report (their JSON into ``chiprun_out/tools/``). It builds
-the CUDA kernel from the sources in this checkout, holds both of its entry
-points (``chol_tri_inv``, ``chol_rescue_tri_inv``) against their plain PyTorch
-versions on the card, shows that every path went through them (launch counts,
-asserted per configuration), and checks the card's results against the port's
-own f64 runs on the CPU. Every failure raises, so the process then exits
+the CUDA kernels from the sources in this checkout, holds the Cholesky
+kernel's two entry points (``chol_tri_inv``, ``chol_rescue_tri_inv``) and the
+derivative chain's kernel (``id_derivatives``, at the cells' sizes, with its
+time beside the plain chain's) against their plain PyTorch versions on the
+card, shows that every path went through them (launch counts, asserted per
+configuration), and checks the card's results against the port's own f64
+runs on the CPU. Every failure raises, so the process then exits
 non-zero. It needs one CUDA device and no network. One JSON object per line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -78,6 +80,7 @@ from idocp_tpu_torch.riccati import parallel as riccati_parallel
 from idocp_tpu_torch.riccati import recursion
 from idocp_tpu_torch.robot import dynamics
 from idocp_tpu_torch.robot import model as model_mod
+from idocp_tpu_torch.robot import spatial
 from idocp_tpu_torch.tools import (accuracy_oracle, chol_kernel_bench,
                                    linearize_profile, mfu_report,
                                    runtime_profile, scaling_evidence,
@@ -158,24 +161,48 @@ DYN_BATCH, DYN_REPS, DYN_TOL_F64, DYN_TOL_F32 = 4096, 5, 1e-10, 1e-4
 # LQR policy of step_with_policy the 4 + N and N of a direction without the
 # grid (counted on the CPU with the plain versions). One KKT residual
 # (kkt_error, mean_kkt_error) factors what one linearization does.
+# The derivative chain (``id_derivatives``): one launch for the stages of a
+# linearization and two for its impulse slots (the top rows, the point
+# velocity rows) on the trot, one on the fixed base; the search's grid
+# evaluates values only.
 KKT_LAUNCHES = {
-    "trot": {"chol_tri_inv": 4, "chol_rescue_tri_inv": 0},
-    "iiwa14": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 0}}
+    "trot": {"chol_tri_inv": 4, "chol_rescue_tri_inv": 0,
+             "id_derivatives": 3},
+    "iiwa14": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 0,
+               "id_derivatives": 1}}
 TROT_POLICY_STEPS = 40
 TROT_POLICY_LAUNCHES = {"chol_tri_inv": 4 + N_HORIZON,
-                        "chol_rescue_tri_inv": N_HORIZON}
+                        "chol_rescue_tri_inv": N_HORIZON,
+                        "id_derivatives": 3}
 LAUNCHES_PER_UPDATE = {
-    "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20},
-    "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20},
-    "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N},
-    "zoh_update": {"chol_tri_inv": 6 + ZOH_N, "chol_rescue_tri_inv": ZOH_N},
+    "plain": {"chol_tri_inv": 24, "chol_rescue_tri_inv": 20,
+              "id_derivatives": 3},
+    "line_search": {"chol_tri_inv": 26, "chol_rescue_tri_inv": 20,
+                    "id_derivatives": 3},
+    "unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": IIWA_N,
+                 "id_derivatives": 1},
+    "zoh_update": {"chol_tri_inv": 6 + ZOH_N, "chol_rescue_tri_inv": ZOH_N,
+                   "id_derivatives": 3},
     "lqr_update_and_policy": {"chol_tri_inv": 10 + 2 * ZOH_N,
-                              "chol_rescue_tri_inv": 2 * ZOH_N},
-    "parallel": {"chol_tri_inv": 5, "chol_rescue_tri_inv": 3},
-    "parallel_line_search": {"chol_tri_inv": 7, "chol_rescue_tri_inv": 3},
-    "parallel_unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 2}}
+                              "chol_rescue_tri_inv": 2 * ZOH_N,
+                              "id_derivatives": 6},
+    "parallel": {"chol_tri_inv": 5, "chol_rescue_tri_inv": 3,
+                 "id_derivatives": 3},
+    "parallel_line_search": {"chol_tri_inv": 7, "chol_rescue_tri_inv": 3,
+                             "id_derivatives": 3},
+    "parallel_unconstr": {"chol_tri_inv": 0, "chol_rescue_tri_inv": 2,
+                          "id_derivatives": 1}}
 WRAPPERS = {"chol_tri_inv": ops.chol_tri_inv,
-            "chol_rescue_tri_inv": ops.chol_rescue_tri_inv}
+            "chol_rescue_tri_inv": ops.chol_rescue_tri_inv,
+            "id_derivatives": ops.id_derivatives}
+# the Cholesky kernel's wrappers: what the tools count in a trace
+CHOL = ("chol_tri_inv", "chol_rescue_tri_inv")
+SOURCES = {"chol_tri_inv": "chol_tri_inv", "chol_rescue_tri_inv": "chol_tri_inv",
+           "id_derivatives": "id_derivatives"}
+REPLACES = {"chol_tri_inv": "idocp_tpu/ops/chol.py:83",
+            "chol_rescue_tri_inv": "idocp_tpu/ops/chol.py:83",
+            "id_derivatives": "none (the chain of idocp_tpu/robot/spatial.py, "
+                              "left to XLA)"}
 PATH_SHAPES = [(BATCH * N_HORIZON, 18, 18), (BATCH * N_HORIZON, 12, 12),
                (BATCH * 4, 18, 18), (BATCH * 4, 12, 12), (BATCH, 12, 12),
                (BATCH * LS_TRIALS * 4, 18, 18), (BATCH * LS_TRIALS * 4, 12, 12)]
@@ -202,6 +229,16 @@ RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
                  (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES \
     + PARALLEL_RESCUE_SHAPES
 KERNEL_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# The derivative chain's kernel at the cells' sizes: the trot's stages at
+# B=4096 and B=512 (N=20), its impulse slots (4096 x 4: the top rows, the
+# point velocity rows) and the arm's stages (512 x 50); against the plain
+# version in f64, each stage to this share of its largest entry
+ID_CASES = (("anymal", (MPC_BIG, N_HORIZON), "stages"),
+            ("anymal", (MPC_BIG, 4), "impulse_top_rows"),
+            ("anymal", (MPC_BIG, 4), "impulse_velocity_rows"),
+            ("anymal", (BATCH, N_HORIZON), "stages"),
+            ("iiwa14", (IIWA_BATCH, IIWA_N), "stages"))
+ID_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 # The measurement tools (idocp_tpu_torch/tools/), each once: runtime_profile
 # at the twin's options at B in {256, 512} and at the main path's at B=512,
 # trace_capture and mfu_report on the main path at B=512, the accuracy
@@ -512,12 +549,135 @@ def phase_kernels(gen):
         shape, rescue_errs[(shape, torch.float32, "spd")], gen, probe)
         for shape in ((BATCH, 12, 12), IIWA_SHAPES[0]) + tuple(
             PARALLEL_RESCUE_SHAPES)]
+    id_rows = id_derivatives_checks(gen)
     emit(phase="kernels", tolerance_f32=1e-4, tolerance_f64=1e-11,
          chol_tri_inv={"checked_shapes": len(errs) + 8, "shapes": rows},
          chol_rescue_tri_inv={"checked_cases": len(rescue_errs) + 4,
                               "shapes": rescue_rows},
+         id_derivatives={"tolerance": {str(k): v for k, v in ID_TOL.items()},
+                         "shapes": id_rows},
          wrapper_host_us=wrapper_host_cost(gen))
-    return {"chol_tri_inv": rows, "chol_rescue_tri_inv": rescue_rows}
+    return {"chol_tri_inv": rows, "chol_rescue_tri_inv": rescue_rows,
+            "id_derivatives": id_rows}
+
+
+def id_inputs(robot, lead, case, dtype, gen):
+    """(model, FK bundle, keyword arguments of ``spatial.id_derivatives``)
+    of one call site of the stages at random states: configurations about
+    the neutral one, velocities, accelerations and, on ANYmal, foot forces
+    with about 40 % of the feet off."""
+    make = anymal.make_model if robot == "anymal" else iiwa14.make_model
+    m = make(device="cuda", dtype=torch.float64)
+    rnd = lambda *shape, scale=1.0: scale * torch.randn(
+        lead + shape, dtype=torch.float64, device="cuda", generator=gen)
+    q = model_mod.integrate(m, m.neutral_q().expand(lead + (m.nq,)),
+                            rnd(m.nv, scale=0.5))
+    v, a = rnd(m.nv), rnd(m.nv, scale=3.0)
+    m, q, v, a = m.to(dtype=dtype), q.to(dtype), v.to(dtype), a.to(dtype)
+    f = spatial.fk(m, q)
+    values = lambda vv, aa, **kw: spatial.motion(m, f, vv, aa,
+                                                 derivatives=False, **kw)
+    if robot == "iiwa14":
+        return m, f, dict(v=v, a=a, F=spatial.rnea(m, f, values(v, a))[2])
+    p_f, fb = spatial.frame_points(m, f, (0, 1, 2, 3))
+    on = torch.rand(lead + (4, 1), device="cuda", generator=gen) < 0.6
+    fm = (on * rnd(4, 3, scale=80.0)).to(dtype)
+    fext = spatial.contact_forces_to_body(m, p_f, fb, fm)
+    zero = torch.zeros_like(v)
+    if case == "stages":
+        F = spatial.rnea(m, f, values(v, a), fext)[2]
+        return m, f, dict(v=v, a=a, F=F, contacts=(p_f, fb), forces=fm)
+    if case == "impulse_top_rows":
+        F = spatial.rnea(m, f, values(zero, a, no_gravity=True), fext)[2]
+        return m, f, dict(v=zero, a=a, F=F, contacts=(p_f, fb), forces=fm,
+                          gravity=False, rows=None)
+    return m, f, dict(v=v, a=zero, contacts=(p_f, fb), rows="vel")
+
+
+def id_bytes(m, lead, kw):
+    """Bytes one launch must move: each input read once (S, v, a, com,
+    rotational inertia; F, contact points and forces where given), each
+    output written once."""
+    nv, nb = m.nv, m.nbodies
+    nc = 0 if kw.get("contacts") is None else kw["contacts"][0].shape[-2]
+    numbers = 8 * nv + 12 * nb
+    if kw.get("F") is not None:
+        numbers += 6 * nb + 2 * nv * nv
+    numbers += 3 * nc + (3 * nc if kw.get("forces") is not None else 0)
+    rows = kw.get("rows", "acc") if nc else None
+    numbers += {None: 0, "vel": 2, "acc": 4}[rows] * 3 * nc * nv
+    stages = int(np.prod(lead))
+    return stages * numbers * torch.finfo(kw["v"].dtype).bits // 8
+
+
+def id_derivatives_checks(gen):
+    """The kernel against its plain version at the cells' sizes in f64 and
+    f32 (the f32 kernel against the f64 plain version of the same rounded
+    inputs), a NaN kept in its stage, what the wrapper refuses; then ms per
+    launch (CUDA events over 20 launches in a row; every shape's bytes pass
+    the L2 cache) beside the plain chain's and the byte bound, f64 (what the
+    cells run) and f32. Returns the timing rows."""
+    rows = []
+    for robot, lead, case in ID_CASES:
+        for dtype in (torch.float64, torch.float32):
+            m, f, kw = id_inputs(robot, lead, case, dtype, gen)
+            got = spatial.id_derivatives(m, f, **kw)
+            torch.cuda.synchronize()
+            up = lambda x: x.double() if isinstance(x, torch.Tensor) else x
+            kw64 = {k: (tuple(map(up, x)) if k == "contacts" else up(x))
+                    for k, x in kw.items()}
+            ref = spatial.id_derivatives_reference(
+                m.to(dtype=torch.float64), spatial.FK(*map(up, (
+                    f.Rw, f.pw, f.S, f.c_w, f.Ic_w))), **kw64)
+            worst = 0.0
+            for i, (x, y) in enumerate(zip(got, ref)):
+                if (x is None) != (y is None):
+                    raise AssertionError(f"id_derivatives {case}: output {i}")
+                if x is None or (case == "impulse_top_rows" and i == 1):
+                    continue
+                err = (x.double() - y).abs().flatten(1).amax(dim=1)
+                scale = y.abs().flatten(1).amax(dim=1)
+                rel = float((err / torch.where(scale > 0, scale, 1.0)).max())
+                if not rel <= ID_TOL[dtype]:
+                    raise AssertionError(
+                        f"id_derivatives {robot} {case} {lead} {dtype} output "
+                        f"{i}: {rel:.3e} of the stage's largest entry")
+                worst = max(worst, rel)
+            nbytes = id_bytes(m, lead, kw)
+            call = lambda: spatial.id_derivatives(m, f, **kw)
+            rows.append({
+                "robot": robot, "case": case, "stages": int(np.prod(lead)),
+                "dtype": str(dtype).split(".")[-1], "max_rel_err": worst,
+                "ms": time_ms(lambda _: call(), [None] * 4, 5),
+                "plain_ms": time_ms(lambda _: spatial.id_derivatives_reference(
+                    m, f, **kw), [None], 2),
+                "bytes": nbytes, "bound_ms": 1e3 * nbytes / 3.35e12,
+                "bound_by": "bytes"})
+            del got, ref, kw, kw64, f
+    # a NaN in one stage stays in that stage
+    m, f, kw = id_inputs("anymal", (512,), "stages", torch.float64, gen)
+    good = spatial.id_derivatives(m, f, **kw)
+    kw["v"] = kw["v"].clone()
+    kw["v"][17, 4] = float("nan")
+    bad = spatial.id_derivatives(m, f, **kw)
+    torch.cuda.synchronize()
+    keep = torch.arange(512, device="cuda") != 17
+    if not (bool(torch.isnan(bad[0][17]).any()) and all(
+            torch.equal(x[keep], y[keep]) for x, y in zip(good, bad))):
+        raise AssertionError("id_derivatives NaN isolation failed")
+    # what the kernel does not take raises
+    for bad_kw, exc in (({"v": kw["v"].float()}, TypeError),
+                        ({"a": torch.zeros(512, 36, dtype=torch.float64,
+                                           device="cuda")[:, ::2]}, ValueError)):
+        try:
+            ops.id_derivatives(
+                spatial._kernel_topology(m, kw["contacts"][1]), m.nbodies,
+                f.S, bad_kw.get("v", kw["v"]), bad_kw.get("a", kw["a"]),
+                f.c_w, f.Ic_w, m.mass, m.gravity, kw["F"])
+        except exc:
+            continue
+        raise AssertionError("id_derivatives accepted an unsupported input")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2064,7 +2224,7 @@ def phase_tools(gpu):
     write_json(prof, TOOLS_OUT / "runtime_profile.json", None)
     for key, row in prof["device_idle_share"].items():
         config = "plain" if key.startswith("main_path") else "line_search"
-        want = sum(LAUNCHES_PER_UPDATE[config].values())
+        want = sum(LAUNCHES_PER_UPDATE[config][k] for k in CHOL)
         if row["chol_kernels_per_update"] != want or not (
                 0.0 <= row["idle_share"] <= 1.0):
             raise AssertionError(f"runtime_profile {key}: {row}")
@@ -2086,7 +2246,8 @@ def phase_tools(gpu):
     mfu, seconds = counted(lambda: mfu_report.report((BATCH,), "cuda"))
     write_json(mfu, TOOLS_OUT / "mfu_report.json", None)
     run = mfu["runs"][0]
-    if run["kernel_launches"] != sum(LAUNCHES_PER_UPDATE["plain"].values()):
+    if run["kernel_launches"] != sum(LAUNCHES_PER_UPDATE["plain"][k]
+                                     for k in CHOL):
         raise AssertionError(f"mfu_report: {run['kernel_launches']} kernel "
                              "launches logged in one update")
     emit(phase="tools", tool="mfu_report", gpu=gpu, seconds=seconds, **{
@@ -2265,8 +2426,8 @@ def main():
         main_row = shapes[0]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "idocp_tpu_torch/ops/csrc/chol_tri_inv.cu",
-            "replaces": "idocp_tpu/ops/chol.py:83",
+            "source": f"idocp_tpu_torch/ops/csrc/{SOURCES[name]}.cu",
+            "replaces": REPLACES[name],
             "launches": launches[name],
             **main_row, "other_shapes": shapes[1:]})
     emit(kernels=kernels)

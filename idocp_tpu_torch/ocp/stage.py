@@ -159,13 +159,10 @@ def _assemble_mat(Hb, sizes, lead, kw):
 
 
 def _contact_point_terms(model, cm, fkb, fm):
-    """Contact points of the FK bundle with their Jacobians and the per-body
-    spatial forces (and q-sensitivities) of the point forces fm (..., nc, 3)."""
+    """Contact points of the FK bundle and the per-body spatial forces of
+    the point forces fm (..., nc, 3)."""
     p_f, fb = spatial.frame_points(model, fkb, cm.frame_ids)
-    Jpts = spatial.point_jacobians(model, fkb, p_f, fb)
-    fext = spatial.contact_forces_to_body(model, p_f, fb, fm)
-    dfext_q = spatial.contact_forces_dq(model, Jpts, fb, fm)
-    return p_f, fb, Jpts, fext, dfext_q
+    return p_f, fb, spatial.contact_forces_to_body(model, p_f, fb, fm)
 
 
 def _impulse_quantities(model, cm, q, v, imp_mask, imp_contact, mj, fkb=None):
@@ -175,9 +172,9 @@ def _impulse_quantities(model, cm, q, v, imp_mask, imp_contact, mj, fkb=None):
     with A(q) [dv; Lambda] = [0; -Jm v],
       d sol/dv = A^-1 [0; -Jm],
       d sol/dq = -A^-1 d/dq [A(q) sol - rhs(q)]
-    where the q-sweep is analytic (robot/spatial.py): the top rows
-    M(q) dv - Jm^T Lambda = RNEA(q, 0, dv, f=Lambda) gravity-free use the
-    closed-form RNEA q-derivative, the bottom rows Jm(q) v+ use the
+    where the q-sweep is analytic (robot/spatial.py::id_derivatives): the
+    top rows M(q) dv - Jm^T Lambda = RNEA(q, 0, dv, f=Lambda) gravity-free
+    use the closed-form RNEA q-derivative, the bottom rows Jm(q) v+ the
     closed-form point-velocity q-derivative. mj = (M, LMi, J) shared with the
     stance factorization; fkb = the stage's world-frame FK bundle.
     """
@@ -194,19 +191,20 @@ def _impulse_quantities(model, cm, q, v, imp_mask, imp_contact, mj, fkb=None):
         LM, LS, Jm, torch.zeros(lead + (nv, 1 + nv), dtype=q.dtype,
                                 device=q.device),
         -torch.cat([Jm @ vcol, Jm], dim=-1))
-    dv0, lam0 = X[..., 0], Y[..., 0]
+    dv0, lam0 = X[..., 0].contiguous(), Y[..., 0]   # dv0: the kernel's input
     Dv_dv, Dv_lam = X[..., 1:], Y[..., 1:]
 
     # d/dq: implicit-function rule, residual r(q) = A(q) sol0 - rhs(q)
     fm = (mask3i * lam0).reshape(lead + (nc, 3))
     zero_v = torch.zeros_like(v)
-    p_f, fb, Jpts, fext, dfext_q = _contact_point_terms(model, cm, fkb, fm)
-    mo_top = spatial.motion(model, fkb, zero_v, dv0, no_gravity=True)
+    p_f, fb, fext = _contact_point_terms(model, cm, fkb, fm)
+    mo_top = spatial.motion(model, fkb, zero_v, dv0, derivatives=False,
+                            no_gravity=True)
     _, _, F_top = spatial.rnea(model, fkb, mo_top, fext)
-    dtop_q, _ = spatial.rnea_derivatives(model, fkb, mo_top, F_top, dfext_q)
-    mo_vel = spatial.motion(model, fkb, v + dv0, zero_v, acc_derivatives=False)
-    dvel_q, _, _, _ = spatial.point_pva_derivatives(
-        model, mo_vel, p_f, fb, Jpts, acc=False)
+    dtop_q = spatial.id_derivatives(model, fkb, zero_v, dv0, F_top, (p_f, fb),
+                                    fm, gravity=False, rows=None)[0]
+    dvel_q = spatial.id_derivatives(model, fkb, v + dv0, zero_v,
+                                    contacts=(p_f, fb), rows="vel")[2]
     dbot_q = mask3i[..., :, None] * dvel_q.reshape(lead + (3 * nc, nv))
     Dq_dv, Dq_lam = contact_solve(LM, LS, Jm, -dtop_q, -dbot_q)
 
@@ -228,13 +226,13 @@ def _dynamics_blocks(model, cm, q, v_eff, a, f, u, contact_active, p_ref,
     mask3 = mask3_of(contact_active, q.dtype)
 
     fm = (mask3 * f).reshape(lead + (nc, 3))
-    p_f, fb, Jpts, fext, dfext_q = _contact_point_terms(model, cm, fkb, fm)
-    mo = spatial.motion(model, fkb, v_eff, a)
+    p_f, fb, fext = _contact_point_terms(model, cm, fkb, fm)
+    Jpts = spatial.point_jacobians(model, fkb, p_f, fb)
+    mo = spatial.motion(model, fkb, v_eff, a, derivatives=False)
     tau, _, F = spatial.rnea(model, fkb, mo, fext)
-    dtau_q, dtau_v = spatial.rnea_derivatives(model, fkb, mo, F, dfext_q)
     pos, vel, acc = spatial.point_pva(model, mo, p_f, fb)
-    dvel_q, dvel_v, dacc_q, dacc_v = spatial.point_pva_derivatives(
-        model, mo, p_f, fb, Jpts)
+    dtau_q, dtau_v, dvel_q, dvel_v, dacc_q, dacc_v = spatial.id_derivatives(
+        model, fkb, v_eff, a, F, (p_f, fb), fm)
 
     id_res = tau - torch.cat(
         [torch.zeros(lead + (nv - model.nu,), dtype=q.dtype, device=q.device),
@@ -519,9 +517,9 @@ def linearize_unconstr_stage(
     # inverse dynamics and its analytic derivatives, the mass matrix, from
     # one world-frame FK bundle
     fkb = spatial.fk(model, q)
-    mo = spatial.motion(model, fkb, v, a)
+    mo = spatial.motion(model, fkb, v, a, derivatives=False)
     tau, _, F = spatial.rnea(model, fkb, mo)
-    Dq, Dv = spatial.rnea_derivatives(model, fkb, mo, F)
+    Dq, Dv = spatial.id_derivatives(model, fkb, v, a, F)[:2]
     M = spatial.mass_matrix(model, fkb)
     e = tau - u
     E_x = torch.cat([Dq, Dv], dim=-1)

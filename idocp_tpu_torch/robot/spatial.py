@@ -17,6 +17,12 @@ closed forms
 
 with the full sensitivity tensors (..., nv, nb, 6) materialised densely.
 Every function takes arbitrary leading dimensions on its state arguments.
+
+``id_derivatives`` is the whole chain the stages need (dtau/dq, dtau/dv and
+the contact points' velocity and acceleration Jacobians) in one call: on a
+CUDA tensor one launch of the hand kernel ``ops/csrc/id_derivatives.cu``,
+which keeps the sensitivity tensors out of device memory; on a CPU tensor its
+plain version ``id_derivatives_reference``, the functions below composed.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import ops
+from ..utils import tracing
 from . import lie
 from .kinematics import body_poses_stacked, frame_pose_of
 from .model import FREE, REVOLUTE, RobotModel
@@ -479,3 +487,99 @@ def point_pva_derivatives(model: RobotModel, mo: Motion, p_f, fb, J,
     dacc_v = (dAv[..., 3:] + cross(dAv[..., :3], px)
               + cross(dVv[..., :3], velx) + cross(wx, dvel_v))
     return to_j(dvel_q), to_j(dvel_v), to_j(dacc_q), to_j(dacc_v)
+
+
+# ---------------------------------------------------------------------------
+# the derivative chain of a stage in one call (hand kernel on the card)
+# ---------------------------------------------------------------------------
+
+def id_derivatives_reference(model: RobotModel, f: FK, v, a, F=None,
+                             contacts=None, forces=None, gravity=True,
+                             rows="acc"):
+    """Plain version of ``id_derivatives``: ``motion`` with its
+    sensitivities, ``contact_forces_dq``, ``rnea_derivatives`` and
+    ``point_pva_derivatives`` composed."""
+    acc = rows == "acc"
+    mo = motion(model, f, v, a, no_gravity=not gravity,
+                acc_derivatives=F is not None or acc)
+    out = [None] * 6
+    if contacts is not None:
+        p_f, fb = contacts
+        J = point_jacobians(model, f, p_f, fb)
+    if F is not None:
+        dfext_q = (None if forces is None
+                   else contact_forces_dq(model, J, fb, forces))
+        out[0], out[1] = rnea_derivatives(model, f, mo, F, dfext_q)
+    if contacts is not None and rows is not None:
+        out[2:] = point_pva_derivatives(model, mo, p_f, fb, J, acc=acc)
+    return tuple(out)
+
+
+def _kernel_topology(model: RobotModel, fb):
+    """The static tree the kernel walks, as one int32 tensor on the model's
+    device: per body its parent, first dof, number of dofs, first child,
+    next sibling and ancestor-or-self bit mask; per dof its body and whether
+    it belongs to a FREE joint; per contact its body."""
+    key = ("id_derivatives_topology", fb)
+    if key not in model.cache:
+        nb, nv = model.nbodies, model.nv
+        parent = list(model.parent)
+        if any(p >= i for i, p in enumerate(parent)):
+            raise ValueError("id_derivatives needs every parent before its child")
+        if nb > 32 or nv > 32:
+            raise ValueError(f"id_derivatives takes nb, nv <= 32, got {nb}, {nv}")
+        ndof = [6 if jt == FREE else 1 for jt in model.joint_types]
+        dof_body = [i for i in range(nb) for _ in range(ndof[i])]
+        base = [int(model.joint_types[i] == FREE) for i in dof_body]
+        first_child, next_sibling = [-1] * nb, [-1] * nb
+        for i in reversed(range(1, nb)):
+            next_sibling[i] = first_child[parent[i]]
+            first_child[parent[i]] = i
+        anc = []
+        for i in range(nb):
+            bits, k = 0, i
+            while k >= 0:
+                bits |= 1 << k
+                k = parent[k]
+            anc.append(bits - (1 << 32) if bits >= 1 << 31 else bits)
+        ints = (parent + list(model.v_offset) + ndof + first_child
+                + next_sibling + anc + dof_body + base + list(fb))
+        model.cache[key] = torch.as_tensor(np.asarray(ints, np.int32),
+                                           device=model.device)
+    return model.cache[key]
+
+
+def id_derivatives(model: RobotModel, f: FK, v, a, F=None, contacts=None,
+                   forces=None, gravity=True, rows="acc"):
+    """Derivatives of the inverse dynamics at (q, v, a) and of contact
+    points' kinematics, tangent-space, one stage per leading index.
+
+    f: the FK bundle at q. F: the subtree force sums ``rnea`` returned (with
+    the same external forces); without it dtau is not computed. contacts:
+    ``(p_f, fb)``, points (..., nc, 3) on the bodies ``fb`` (a static tuple).
+    forces: world point forces (..., nc, 3) at those points, the external
+    forces F holds (their torque arm moves with q). gravity: whether the
+    motion carries the gravity offset a0 (``motion``'s ``no_gravity``).
+    rows: the contact points' Jacobians returned, "acc" (velocity and
+    acceleration), "vel" (velocity only) or None.
+
+    Returns (dtau_q, dtau_v, dvel_q, dvel_v, dacc_q, dacc_v): dtau
+    (..., nv, nv) rows tau, columns the tangent; the contact rows
+    (..., nc, 3, nv); None where not asked for. A CPU tensor takes
+    ``id_derivatives_reference``; a CUDA tensor (contiguous) one launch of
+    the hand kernel (``ops.id_derivatives``), the same closed forms summed in
+    tree order."""
+    if rows not in ops.inverse_dynamics.ROWS:
+        raise ValueError(f"rows must be one of {ops.inverse_dynamics.ROWS}, "
+                         f"got {rows!r}")
+    if forces is not None and contacts is None:
+        raise ValueError("forces act at contacts: pass contacts")
+    with tracing.span("idocp.update.linearize.id_derivatives"):
+        if v.device.type == "cpu":
+            return id_derivatives_reference(model, f, v, a, F, contacts,
+                                            forces, gravity, rows)
+        p_f, fb = contacts if contacts is not None else (None, ())
+        return ops.id_derivatives(
+            _kernel_topology(model, tuple(fb)), model.nbodies, f.S, v, a,
+            f.c_w, f.Ic_w, model.mass, model.gravity if gravity else None, F,
+            p_f, forces, rows=rows if contacts is not None else None)

@@ -21,6 +21,9 @@ import idocp_tpu_torch as it
 from idocp_tpu_torch.tools import _workloads as wl
 from idocp_tpu_torch.utils import tracing
 
+# the derivative chain's span: twice in the impulse slots' linearization
+# (the top rows, the point velocity rows), once in the stages'
+ID_DERIVATIVES = "idocp.update.linearize.id_derivatives"
 UPDATE = ["idocp.update.linearize", "idocp.update.terminal",
           "idocp.update.condense", "idocp.update.riccati",
           "idocp.update.expand", "idocp.update.expand"]
@@ -33,11 +36,15 @@ TREES = {
          ("idocp.schedule.upload", "idocp.schedule"),
          ("idocp.update", "idocp.mpc.step"),
          ("idocp.update.linearize", "idocp.update"),
-         ("idocp.update.linearize.impulse", "idocp.update.linearize")]
+         ("idocp.update.linearize.impulse", "idocp.update.linearize"),
+         (ID_DERIVATIVES, "idocp.update.linearize.impulse"),
+         (ID_DERIVATIVES, "idocp.update.linearize.impulse"),
+         (ID_DERIVATIVES, "idocp.update.linearize")]
         + [(n, "idocp.update") for n in UPDATE[1:] + ["idocp.update.step"]]),
     "iiwa14_search": (
-        [("idocp.update", None)]
-        + [(n, "idocp.update") for n in UPDATE + [
+        [("idocp.update", None), ("idocp.update.linearize", "idocp.update"),
+         (ID_DERIVATIVES, "idocp.update.linearize")]
+        + [(n, "idocp.update") for n in UPDATE[1:] + [
             "idocp.update.search", "idocp.update.step", "idocp.update.kkt"]]),
 }
 # the Tensor methods that wait for the device and copy to the host
