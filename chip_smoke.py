@@ -49,7 +49,6 @@ the last line is ``{"ok": true, "device": {...}}``.
 import contextlib
 import ctypes
 import dataclasses
-import importlib
 import io
 import json
 import os
@@ -421,14 +420,15 @@ def host_us(fn, calls=1000):
 
 def wrapper_host_cost(gen):
     """What one wrapper call costs on the host at (512, 12, 12) f32, piece by
-    piece: the pieces of ``ops.chol._run``, the two it avoids on the current
-    device (a ``Stream`` object, a device context) and the whole call."""
+    piece: the pieces of ``ops.chol._run`` and ``ops._build.launch``, the
+    two they avoid on the current device (a ``Stream`` object, a device
+    context) and the whole call."""
     A = spd((BATCH, 12, 12), torch.float32, gen)
     out = torch.empty_like(A)
-    # the module, not the function `chol` that the package exports over it
-    chol_module = importlib.import_module("idocp_tpu_torch.ops.chol")
-    fn = chol_module._kernel("chol_tri_inv", A.dtype, ())
-    stream = chol_module._current_stream(0)
+    fn = _build.entry("chol_tri_inv", "chol_tri_inv", A.dtype,
+                       (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int))
+    stream = _build._current_stream(0)
 
     def device_context():
         with torch.cuda.device(A.device):
@@ -439,7 +439,7 @@ def wrapper_host_cost(gen):
         "current_device": host_us(torch.cuda.current_device),
         "current_stream_object": host_us(
             lambda: torch.cuda.current_stream().cuda_stream),
-        "current_stream_handle": host_us(lambda: chol_module._current_stream(0)),
+        "current_stream_handle": host_us(lambda: _build._current_stream(0)),
         "device_context": host_us(device_context),
         "ctypes_launch": host_us(
             lambda: fn(A.data_ptr(), out.data_ptr(), BATCH, 12, stream)),
@@ -745,6 +745,8 @@ def phase_split(gpu, bs, sol_b, t, q_b, v_b, *extra, workload="trot"):
     solver takes after the measured state (the trot's schedule)."""
     solver = bs.solver
     batch, n_horizon = sol_b.a.shape[:2]
+    # the stage functions take a schedule in the update's own layout
+    extra = tuple(solver.check_schedule(x, batch) for x in extra)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -762,13 +764,14 @@ def phase_split(gpu, bs, sol_b, t, q_b, v_b, *extra, workload="trot"):
         (batch, LS_TRIALS) + x.shape[1:]).reshape(
         (batch * LS_TRIALS,) + x.shape[1:])
     grid_sol, grid_q, grid_v = sol_b.map(tile), tile(q_b), tile(v_b)
+    grid_extra = tuple(x.repeat_scenarios(LS_TRIALS) for x in extra)
     # ... and the same pass on one trial per scenario: the same launches on an
     # eighth of the data, so the difference is the device's share
     evaluate_grid = evaluate_one_trial = 0.0
     with torch.no_grad():
         for _ in range(reps):
             _, ms = timed(lambda: solver.evaluate_all(grid_sol, t, grid_q,
-                                                      grid_v, *extra))
+                                                      grid_v, *grid_extra))
             evaluate_grid += ms / reps
             _, ms = timed(lambda: solver.evaluate_all(sol_b, t, q_b, v_b,
                                                       *extra))
@@ -855,7 +858,8 @@ def phase_line_search(gpu):
         raise AssertionError(f"{frozen} frozen scenario-updates")
 
     # the value path at alpha = 0 measures what the update measures
-    cost_eval, viol_eval = bs.solver.evaluate_all(sol_b, T0, q_b, v_b, sched)
+    cost_eval, viol_eval = bs.solver.evaluate_all(
+        sol_b, T0, q_b, v_b, bs.solver.check_schedule(sched, sol_b.q.shape[0]))
     _, stats = bs.update(sol_b, T0, q_b, v_b, sched)
     cost0 = stats.cost + stats.barrier
     cost_gap = ((cost_eval - cost0).abs() / (1 + cost0.abs())).max()
@@ -1494,6 +1498,7 @@ def riccati_split(bs, sol_b, t, q_b, v_b, *extra, reps=PAR_REPS):
     ``parallel_constrained`` less the other two), as the solver runs it."""
     solver = bs.solver
     k_sw = getattr(solver, "max_impulse_stages", 0)
+    extra = tuple(solver.check_schedule(x, sol_b.q.shape[0]) for x in extra)
     with torch.no_grad():
         lin = solver.linearize_all(sol_b, t, q_b, v_b, *extra)
         term = solver.terminal_fn(sol_b, t)
@@ -1691,7 +1696,7 @@ def f64_direction_gate(workload):
             bs, sol_b, q_b, v_b, sched = build(
                 CPU_SCENARIOS, N_HORIZON, torch.float64, "cuda",
                 solver_cls=it.ParNMPCSolver if par else it.OCPSolver)
-            extra, t = (sched,), T0
+            extra, t = (bs.solver.check_schedule(sched, CPU_SCENARIOS),), T0
         else:
             bs, sol_b, q_b, v_b = build_iiwa(
                 CPU_SCENARIOS, torch.float64, "cuda", True,
@@ -2388,7 +2393,7 @@ def main():
                         r"Used (\d+) registers", v["output"]))),
                     "spill_store_bytes": sum(map(int, re.findall(
                         r"(\d+) bytes spill stores", v["output"])))}
-                for k, v in _build.build_log.items()})
+                for k, v in _build.build_log.items() if k in _build.sources()})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)

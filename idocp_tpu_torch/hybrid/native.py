@@ -2,10 +2,8 @@
 
 Twin of ``idocp_tpu/hybrid/native.py`` (``discretize_batch``). The C++ source,
 ``hybrid/csrc/schedule.cpp``, is the port's own copy of the JAX package's.
-It is compiled with the host C++ compiler (``$CXX``, else ``c++``) at first
-use into ``hybrid/_build/`` (git-ignored), named by the hash of the source and
-the flags, and renamed into place atomically, so that processes that build it
-at the same time never load half a file. Nothing is built at import.
+``ops/_build.py``, which builds every native library of the port, compiles it
+with the host C++ compiler at first use. Nothing is built at import.
 
 Unlike the twin there is no silent fallback: a failed build or load raises.
 ``force_python=True`` remains the explicit choice of the per-scenario Python
@@ -14,74 +12,33 @@ discretizer (``ContactSequence.discretize``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shlex
-import shutil
-import subprocess
-from pathlib import Path
 from typing import List
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..utils import tracing
 from .schedule import (TENSOR_FIELDS, ContactSequence, HorizonSchedule,
                        schedule_from_arrays, stack_schedules)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "schedule.cpp"
-_OUT = Path(__file__).resolve().parent / "_build"
-CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
-
-_lib = None
-
-
-def _compiler():
-    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("no host C++ compiler (c++ / g++ / $CXX) found: the "
-                           "schedule library of idocp_tpu_torch needs one")
-    return shlex.split(cxx)
-
-
-def _target() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return _OUT / f"libschedule_{digest}.so"
-
 
 def load() -> ctypes.CDLL:
-    """The loaded schedule library, built at first use; raises if it cannot
+    """The loaded schedule library, built at first use by ``ops/_build.py``
+    (with the host compiler, into ``hybrid/_build/``); raises if it cannot
     be built or loaded."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    target = _target()
-    if not target.exists():
-        _OUT.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [*_compiler(), *CXX_FLAGS, "-o", str(tmp), str(_SRC)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as exc:
-            raise RuntimeError(f"could not run {cmd[0]!r}: {exc}") from exc
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {_SRC.name} failed (rc={proc.returncode}):\n"
-                f"{(proc.stdout + proc.stderr)[-2000:]}")
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    i64, dbl = ctypes.c_int64, ctypes.c_double
-    p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    p_dbl = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    lib.discretize_batch.argtypes = [
-        i64, i64, i64, p_dbl, dbl, i64, p_i64,
-        p_dbl, p_u8, p_dbl, p_u8, p_dbl, dbl,
-        p_dbl, p_dbl, p_u8, p_dbl, p_u8, p_u8, p_u8, p_dbl,
-    ]
-    lib.discretize_batch.restype = None
-    _lib = lib
+    lib = _build.load("schedule")
+    if lib.discretize_batch.argtypes is None:
+        i64, dbl = ctypes.c_int64, ctypes.c_double
+        p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        p_dbl = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.discretize_batch.argtypes = [
+            i64, i64, i64, p_dbl, dbl, i64, p_i64,
+            p_dbl, p_u8, p_dbl, p_u8, p_dbl, dbl,
+            p_dbl, p_dbl, p_u8, p_dbl, p_u8, p_u8, p_u8, p_dbl,
+        ]
+        lib.discretize_batch.restype = None
     return lib
 
 

@@ -76,13 +76,22 @@ class HorizonSchedule:
         return HorizonSchedule(**{name: getattr(self, name)[b]
                                   for name in TENSOR_FIELDS})
 
+    def expand_scenarios(self, b: int) -> "HorizonSchedule":
+        """A shared schedule as a batched one of b equal scenarios, each
+        field a view ((N, ...) -> (b, N, ...)); the counts stay."""
+        return self._carry(**{
+            name: getattr(self, name).expand((b,) + getattr(self, name).shape)
+            for name in TENSOR_FIELDS})
+
     def repeat_scenarios(self, k: int) -> "HorizonSchedule":
         """A batched schedule with each scenario repeated k times in a row
         ((B, ...) -> (B k, ...), scenario b at rows b k ... b k + k - 1); the
-        counts stay."""
-        return self._carry(**{
-            name: torch.repeat_interleave(getattr(self, name), k, dim=0)
-            for name in TENSOR_FIELDS})
+        counts stay. A view where the scenarios are one expanded row
+        (``expand_scenarios``), a copy otherwise."""
+        rows = lambda x: x[:, None].expand(
+            (x.shape[0], k) + x.shape[1:]).reshape((-1,) + x.shape[1:])
+        return self._carry(**{name: rows(getattr(self, name))
+                              for name in TENSOR_FIELDS})
 
     def to(self, device=None, dtype=None) -> "HorizonSchedule":
         kw = {}

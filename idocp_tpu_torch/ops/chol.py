@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from . import _build
+
 N_MAX = 32
 
 
@@ -101,32 +103,6 @@ def chol_rescue_tri_inv_reference(G: torch.Tensor, reg: float = 0.0) -> torch.Te
     return tri_inv(chol_rescue(G, reg))
 
 
-_kernels: dict = {}
-
-
-def _kernel(name, dtype, extra_argtypes):
-    """The library's C entry point ``<name>_f32 / _f64`` (the library is
-    built and loaded at first use)."""
-    from . import _build
-    lib = _build.load("chol_tri_inv")
-    fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, *extra_argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _kernels[name, dtype] = fn
-    return fn
-
-
-def _current_stream(index: int) -> int:
-    """Handle of the current CUDA stream of device ``index``. PyTorch's
-    internal accessor returns it without building a ``Stream`` object, which
-    costs more than the rest of a wrapper call together."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
 def _run(wrapper, plain, A: torch.Tensor, extra_argtypes=(), *extra):
     """Check ``A``, then the plain version for a CPU tensor, one kernel launch
     on the current stream of its device for a CUDA tensor. (The C launcher
@@ -148,40 +124,27 @@ def _run(wrapper, plain, A: torch.Tensor, extra_argtypes=(), *extra):
     if device.type != "cuda":
         raise RuntimeError(f"unsupported device {device}")
 
-    name = wrapper.__name__
-    fn = _kernels.get((name, dtype)) or _kernel(name, dtype, extra_argtypes)
     out = torch.empty_like(A)
-    index = device.index
-    if index == torch.cuda.current_device():
-        err = fn(A.data_ptr(), out.data_ptr(), A.numel() // (n * n), n, *extra,
-                 _current_stream(index))
-    else:  # a launch goes to the calling thread's current device
-        with torch.cuda.device(index):
-            err = fn(A.data_ptr(), out.data_ptr(), A.numel() // (n * n), n,
-                     *extra, _current_stream(index))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    if wrapper.shapes is not None:
-        wrapper.shapes.append((A.numel() // (n * n), n, dtype))
+    batch = A.numel() // (n * n)
+    _build.launch(wrapper, "chol_tri_inv", device, dtype,
+                  (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, *extra_argtypes),
+                  (A.data_ptr(), out.data_ptr(), batch, n, *extra),
+                  (batch, n, dtype))
     return out
 
 
+@_build.counted
 def chol_tri_inv(A: torch.Tensor) -> torch.Tensor:
     """L^{-1} for ``A = L L^T``, ``A (..., n, n)`` contiguous f32/f64, n <= 32.
     ``chol_tri_inv.launches`` counts kernel launches."""
     return _run(chol_tri_inv, chol_tri_inv_reference, A)
 
 
+@_build.counted
 def chol_rescue_tri_inv(G: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
     """L^{-1} for the first finite rung of ``chol_rescue(G, reg)``,
     ``G (..., n, n)`` contiguous f32/f64, n <= 32, ``reg`` a Python number.
     ``chol_rescue_tri_inv.launches`` counts kernel launches."""
     return _run(chol_rescue_tri_inv, chol_rescue_tri_inv_reference, G,
                 (ctypes.c_double,), float(reg))
-
-
-chol_tri_inv.launches = 0
-chol_rescue_tri_inv.launches = 0
-chol_tri_inv.shapes = None
-chol_rescue_tri_inv.shapes = None

@@ -17,22 +17,12 @@ import ctypes
 
 import torch
 
-from .chol import _current_stream
+from . import _build
 
 ROWS = (None, "vel", "acc")
-_kernels: dict = {}
-
-
-def _kernel(dtype):
-    from . import _build
-    lib = _build.load("id_derivatives")
-    fn = getattr(lib, "id_derivatives_" + ("f32" if dtype == torch.float32
-                                           else "f64"))
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_longlong] + [ctypes.c_void_p] * 17)
-    fn.restype = ctypes.c_int
-    _kernels[dtype] = fn
-    return fn
+#: the C entry point's arguments before the stream
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_longlong] + [ctypes.c_void_p] * 16)
 
 
 def _checked(x, shape, dtype, device, name):
@@ -46,6 +36,7 @@ def _checked(x, shape, dtype, device, name):
     return x.data_ptr()
 
 
+@_build.counted
 def id_derivatives(topo, nb, S, v, a, c, Ic, mass, gravity=None, F=None,
                    p=None, forces=None, rows=None):
     """One launch over the stages of ``v`` (lead, nv).
@@ -90,21 +81,7 @@ def id_derivatives(topo, nb, S, v, a, c, Ic, mass, gravity=None, F=None,
         out[4], out[5] = new(nc, 3, nv), new(nc, 3, nv)
     out_ptrs = [None if x is None else x.data_ptr() for x in out]
 
-    fn = _kernels.get(dtype) or _kernel(dtype)
-    args = (topo.data_ptr(), nb, nv, nc, stages, *ptrs, *out_ptrs)
-    index = device.index
-    if index == torch.cuda.current_device():
-        err = fn(*args, _current_stream(index))
-    else:  # a launch goes to the calling thread's current device
-        with torch.cuda.device(index):
-            err = fn(*args, _current_stream(index))
-    if err != 0:
-        raise RuntimeError(f"id_derivatives kernel launch failed: CUDA error {err}")
-    id_derivatives.launches += 1
-    if id_derivatives.shapes is not None:
-        id_derivatives.shapes.append((stages, nv, nb, nc, dtype))
+    _build.launch(id_derivatives, "id_derivatives", device, dtype, ARGTYPES,
+                  (topo.data_ptr(), nb, nv, nc, stages, *ptrs, *out_ptrs),
+                  (stages, nv, nb, nc, dtype))
     return tuple(out)
-
-
-id_derivatives.launches = 0
-id_derivatives.shapes = None

@@ -14,8 +14,9 @@ whole (B, K) trial grid in one batched pass (line_search.py). The closures
 take whatever the solver's stage functions take after the measured state (the
 contact family's schedule, nothing for the fixed-base family) as trailing
 arguments, as the twin's ``*extra``. A schedule with one row per scenario
-(``HorizonSchedule.batched``) is repeated for each trial of the grid; a shared
-one is passed as it is. The update and each of its phases run inside a span
+(``HorizonSchedule.batched``, the only layout the update takes: the solver's
+``check_schedule`` expands a shared one) is repeated for each trial of the
+grid. The update and each of its phases run inside a span
 of ``utils/tracing.py`` (``idocp.update``, ``idocp.update.linearize``, ...),
 a shared no-op unless the program is traced.
 """
@@ -28,7 +29,6 @@ from typing import Callable
 import torch
 
 from ..constraints import pdipm
-from ..hybrid.schedule import HorizonSchedule
 from ..ocp.condensing import condense, dual_rhs, expand_primal
 from ..ocp.data import Solution, TensorStruct
 from ..ocp.state_equation import contact_solve_T
@@ -75,15 +75,6 @@ def _sum_b(x):
 def _all_finite_b(x):
     """Per-scenario finiteness flag: (B, ...) -> (B,) bool."""
     return torch.isfinite(x).flatten(1).all(dim=1)
-
-
-def _per_trial_extra(extra, K):
-    """The trailing arguments for a flat (B K) grid whose rows b K ... b K +
-    K - 1 are the trials of scenario b: a per-scenario schedule is repeated K
-    times per scenario, anything else (a shared schedule) passes as it is."""
-    return tuple(x.repeat_scenarios(K)
-                 if isinstance(x, HorizonSchedule) and x.batched else x
-                 for x in extra)
 
 
 def _bcast(flag, like):
@@ -317,9 +308,11 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
                          for k, x in apply_primal(alphas).items()}
                 per_trial = lambda x: flat(
                     x[:, None].expand((B, K) + x.shape[1:]))
+                # rows b K ... b K + K - 1 are the trials of scenario b
                 costs, viols = evaluate_all(
                     dataclasses.replace(sol, **trial), t, per_trial(q_meas),
-                    per_trial(v_meas), *_per_trial_extra(extra, K))
+                    per_trial(v_meas),
+                    *(x.repeat_scenarios(K) for x in extra))
                 return costs.reshape(B, K), viols.reshape(B, K)
 
             with tracing.span("idocp.update.search"):

@@ -7,14 +7,15 @@ constraints, all static-shape via HorizonSchedule masks. One Newton iteration
 per ``update_solution`` call, a Newton loop to tolerance per ``solve`` call,
 under ``torch.no_grad()``.
 
-Every function works on a batch of scenarios, on one schedule shared by the
-batch (fields (N, ...)) or on one schedule per scenario (fields (B, N, ...),
-``HorizonSchedule.batched``): stages are flattened to (B N, ...) for the
-linearization and the value-only evaluation and kept as (B, N, ...) inside
-the Riccati loop. The single-scenario entry
-points (``update_solution``, ``kkt_error``, ``solve``, ``get_lqr_policy``)
-are the same code with B = 1; ``parallel.batch.BatchedSolver`` is a thin
-wrapper around the batched ones.
+Every function works on a batch of scenarios. The entry points take one
+schedule shared by the batch (fields (N, ...)) or one per scenario (fields
+(B, N, ...), ``HorizonSchedule.batched``); ``check_schedule`` passes a shared
+one on as a (B, N, ...) view, the one layout below it. Stages are flattened
+to (B N, ...) for the linearization and the value-only evaluation and kept as
+(B, N, ...) inside the Riccati loop. The single-scenario entry points
+(``update_solution``, ``kkt_error``, ``solve``, ``get_lqr_policy``) are the
+same code with B = 1; ``parallel.batch.BatchedSolver`` is a thin wrapper
+around the batched ones.
 """
 from __future__ import annotations
 
@@ -158,19 +159,9 @@ class OCPSolver(_SolverCommon):
         """The (up to k) impulse stages of each scenario's schedule with their
         states flattened to (L k, ...); extra slots land on arbitrary
         non-impulse stages with mask 0 (their gated quantities are
-        identity). Returns ``slots``: (k,) stage indices of a shared schedule
-        or (L, k) per scenario of a batched one."""
+        identity). Returns ``slots``: (L, k) stage indices, a stable sort of
+        each row, as the twin's argsort under vmap."""
         k, L = self.max_impulse_stages, sol.q.shape[0]
-        if not sched.batched:
-            slots = torch.argsort(torch.logical_not(sched.imp_mask),
-                                  stable=True)[:k]
-            q_s = _flat(torch.index_select(sol.q, 1, slots))
-            v_s = _flat(torch.index_select(sol.v, 1, slots))
-            mask_s = sched.imp_mask[slots].expand(L, k).reshape(-1)
-            ic_s = _flat(sched.imp_contact[slots].expand(L, k, self.cm.nc))
-            return slots, q_s, v_s, mask_s, ic_s
-        # per scenario: a stable sort of each row, as the twin's argsort
-        # under vmap
         slots = torch.argsort(torch.logical_not(sched.imp_mask), dim=-1,
                               stable=True)[:, :k]
         take = lambda x: _flat(torch.gather(
@@ -182,9 +173,7 @@ class OCPSolver(_SolverCommon):
     @staticmethod
     def _scatter(base, slots, out):
         """base (L, N, ...) with the slot rows out (L, k, ...) written at the
-        stages ``slots``, (k,) shared or (L, k) per scenario (in place)."""
-        if slots.dim() == 1:
-            return base.index_copy_(1, slots, out)
+        stages ``slots`` (L, k) (in place)."""
         idx = slots.reshape(slots.shape + (1,) * (out.dim() - 2))
         return base.scatter_(1, idx.expand(out.shape), out)
 
@@ -225,15 +214,9 @@ class OCPSolver(_SolverCommon):
 
     def _stage_args(self, sol, t, sched: HorizonSchedule, with_dual):
         """The per-stage arguments shared by the linearization and the
-        value-only evaluation, flattened to (L N, ...). A shared schedule's
-        (N, ...) fields are expanded over the L scenarios, a batched one's
-        (L, N, ...) are taken as they are."""
-        N_, L = self.N, sol.q.shape[0]
-        if sched.batched:
-            per_stage = _flat
-        else:
-            per_stage = lambda x: _flat(x.expand((L,) + x.shape))
-        head = (per_stage(t + sched.t_offset), per_stage(sched.dt),
+        value-only evaluation, flattened to (L N, ...)."""
+        N_ = self.N
+        head = (_flat(t + sched.t_offset), _flat(sched.dt),
                 _flat(sol.q[:, :N_]), _flat(sol.v[:, :N_]), _flat(sol.a),
                 _flat(sol.f), _flat(sol.u), _flat(sol.q[:, 1:]),
                 _flat(sol.v[:, 1:]),
@@ -241,9 +224,9 @@ class OCPSolver(_SolverCommon):
         if with_dual:
             head += ({k: _flat(v[:, :N_]) for k, v in sol.dual.items()},)
         return head + (
-            per_stage(sched.contact_active), per_stage(sched.contact_pos),
-            per_stage(sched.imp_mask), per_stage(sched.imp_contact),
-            per_stage(sched.sw_contact), per_stage(sched.sw_pos), self._ctx)
+            _flat(sched.contact_active), _flat(sched.contact_pos),
+            _flat(sched.imp_mask), _flat(sched.imp_contact),
+            _flat(sched.sw_contact), _flat(sched.sw_pos), self._ctx)
 
     def linearize_all(self, sol: Solution, t, q_meas, v_meas,
                       sched: HorizonSchedule, named_blocks=False,
@@ -385,7 +368,9 @@ class OCPSolver(_SolverCommon):
         sw_contact without imp_mask). ``batch``: the number of scenarios of a
         batched entry point, which takes a shared schedule or one of
         ``batch`` scenarios; None for a one-scenario entry point, which takes
-        a shared schedule only."""
+        a shared schedule only. Returns the one layout the update takes: a
+        batched schedule as it is, a shared one as a view of ``batch`` (or
+        1) equal scenarios."""
         if schedule.batched:
             if batch is None:
                 raise ValueError(
@@ -403,6 +388,8 @@ class OCPSolver(_SolverCommon):
                 f"max_impulse_stages={self.max_impulse_stages}; raise "
                 "max_impulse_stages (OCPSolver ctor) to cover the gait's "
                 "touchdown count")
+        return (schedule if schedule.batched
+                else schedule.expand_scenarios(1 if batch is None else batch))
 
     # ------------------------------------------------------------------
     def update_batched(self, sol_b: Solution, t, q_b, v_b,
@@ -410,8 +397,8 @@ class OCPSolver(_SolverCommon):
         """One Newton iteration on a batch of scenarios (leading axis B) on a
         shared or a batched ``schedule``: (new batched Solution, UpdateStats
         of (B,))."""
-        self.check_schedule(schedule, sol_b.q.shape[0])
-        return self._update(sol_b, t, q_b, v_b, schedule)
+        return self._update(sol_b, t, q_b, v_b,
+                            self.check_schedule(schedule, sol_b.q.shape[0]))
 
     def update_solution(self, t, q, v, schedule: HorizonSchedule):
         """One Newton iteration on the solver's own single-scenario solution."""
@@ -423,8 +410,8 @@ class OCPSolver(_SolverCommon):
     def kkt_error_batched(self, sol_b: Solution, t, q_b, v_b,
                           schedule: HorizonSchedule):
         """KKT residual norm (B,) of a batched solution (one linearization)."""
-        self.check_schedule(schedule, sol_b.q.shape[0])
-        return self._kkt(sol_b, t, q_b, v_b, schedule)
+        return self._kkt(sol_b, t, q_b, v_b,
+                         self.check_schedule(schedule, sol_b.q.shape[0]))
 
     def kkt_error(self, t, q, v, schedule: HorizonSchedule) -> float:
         sol_b, q_b, v_b = self._batched(q, v)
@@ -447,7 +434,7 @@ class OCPSolver(_SolverCommon):
         late: iteration k+1 is queued before the flag of iteration k is
         waited for, and dropped unseen if k met the tolerance. The launch
         queue stays full; the result is that of a loop that stops at once."""
-        self.check_schedule(schedule)
+        schedule = self.check_schedule(schedule)
         it_cap = max_iterations or self.options.max_iterations
         tol = tol or self.options.kkt_tol
         sol_b, q_b, v_b = self._batched(q, v)
@@ -482,7 +469,7 @@ class OCPSolver(_SolverCommon):
         Requires options.compute_kkt_error=True (otherwise stats.kkt_error
         is the direction-norm proxy and ``tol`` means that instead). Returns
         (solution, iters (B,) int32, kkt (B,), converged (B,) bool)."""
-        self.check_schedule(schedule, sol_b.q.shape[0])
+        schedule = self.check_schedule(schedule, sol_b.q.shape[0])
         *out, self.host_reads = solve_masked(
             self._update, sol_b, (t, q_b, v_b, schedule),
             tol or self.options.kkt_tol,
@@ -494,7 +481,7 @@ class OCPSolver(_SolverCommon):
         multipliers xi = Kxi dx + kxi) from a Riccati factorization at the
         current iterate, used to interpolate controls between MPC updates.
         Returns an LQRPolicy stacked over N."""
-        self.check_schedule(schedule)
+        schedule = self.check_schedule(schedule)
         sol_b, q_b, v_b = self._batched(q, v)
         return self._direction(sol_b, t, q_b, v_b, schedule)[-1].map(
             lambda x: x[0])

@@ -60,12 +60,13 @@ def components(device, dtype=torch.float32, n_horizon=N_HORIZON, want=None):
                                        options=TWIN_OPTIONS)
     solver = bs.solver
     m, cm = solver.model, solver.cm
-    args = [_take(a, 1) for a in solver._stage_args(sol_b, T0, sched, True)]
+    inner = solver.check_schedule(sched, 1)    # the layout below the update
+    args = [_take(a, 1) for a in solver._stage_args(sol_b, T0, inner, True)]
     (q, v, a, f, u), (ca, cpos) = args[2:7], args[11:13]
-    evals = [_take(a, 4) for a in solver._stage_args(sol_b, T0, sched, False)]
+    evals = [_take(a, 4) for a in solver._stage_args(sol_b, T0, inner, False)]
     fids = cm.frame_ids
     f3 = torch.zeros((1, cm.nc, 3), dtype=dtype, device=m.device)
-    lin = lambda: solver.linearize_all(sol_b, T0, q_b, v_b, sched)
+    lin = lambda: solver.linearize_all(sol_b, T0, q_b, v_b, inner)
     rows = {}
     if "rnea" in want:
         rows["rnea"] = lambda: dynamics.rnea(m, q, v, a, fids, f3)

@@ -173,6 +173,9 @@ def update_phases(bs, sol_b, t, q_b, v_b, *extra):
     if options.parallel_riccati:
         raise ValueError("the profile splits the serial Riccati recursion")
     out = {}
+    batch = sol_b.q.shape[0]
+    # the stage functions take a schedule in the update's own layout
+    inner = tuple(solver.check_schedule(x, batch) for x in extra)
 
     def riccati():
         lin, term, cs = out["linearize"], out["terminal"], out["condense"]
@@ -187,18 +190,19 @@ def update_phases(bs, sol_b, t, q_b, v_b, *extra):
                               lin.F_w, lin.xres, lin.Cx_raw, lin.Cw_raw, lin.h)
     steps = {
         "linearize": lambda: solver.linearize_all(
-            sol_b, t, q_b, v_b, *extra, named_blocks=options.compute_kkt_error),
+            sol_b, t, q_b, v_b, *inner, named_blocks=options.compute_kkt_error),
         "terminal": lambda: solver.terminal_fn(sol_b, t),
         "condense": lambda: condense(*lin_fields(out["linearize"])),
         "riccati": riccati}
     if options.use_line_search:
         # the current point as every trial of a (B, K) grid, flattened as the
         # update flattens its grid
-        batch, K = sol_b.q.shape[0], options.line_search_alphas
+        K = options.line_search_alphas
         tile = lambda x: x[:, None].expand((batch, K) + x.shape[1:]).reshape(
             (batch * K,) + x.shape[1:])
-        grid = (sol_b.map(tile), t, tile(q_b), tile(v_b))
-        steps["evaluate"] = lambda: solver.evaluate_all(*grid, *extra)
+        grid = (sol_b.map(tile), t, tile(q_b), tile(v_b),
+                *(x.repeat_scenarios(K) for x in inner))
+        steps["evaluate"] = lambda: solver.evaluate_all(*grid)
     steps["update_full"] = lambda: bs.update(sol_b, t, q_b, v_b, *extra)
     return steps, out
 

@@ -15,9 +15,9 @@ from idocp_tpu.hybrid import native as j_native
 from idocp_tpu.hybrid.schedule import ContactSequence as JContactSequence
 from idocp_tpu.solver.mpc import TrotGait as JTrotGait
 from idocp_tpu_torch import convert
-from idocp_tpu_torch.hybrid import native as t_native
 from idocp_tpu_torch.hybrid.schedule import count_stages
 from idocp_tpu_torch.models import anymal as t_anymal
+from idocp_tpu_torch.ops import _build
 
 FEET = np.array([[0.3, 0.2, 0.0], [-0.3, 0.2, 0.0],
                  [0.3, -0.2, 0.0], [-0.3, -0.2, 0.0]])
@@ -150,14 +150,50 @@ def test_batched_counts_are_the_max_over_scenarios():
     assert torch.equal(rep.imp_mask[12:15], sched.imp_mask[4].expand(3, 20))
 
 
-def test_failed_build_raises(tmp_path, monkeypatch):
-    """No silent fallback to the Python discretizer: a compiler that fails,
-    or none at all, raises."""
-    monkeypatch.setattr(t_native, "_OUT", tmp_path / "_build")
-    monkeypatch.setattr(t_native, "_lib", None)
-    seqs = [it.TrotGait().build_sequence(FEET, 0.0, 1.5)]
-    for cxx in ("false", str(tmp_path / "no-such-compiler")):
+def _compiler_script(path, body):
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(0o755)
+    return str(path)
+
+
+@pytest.mark.parametrize("outcome", ["failing_compiler", "missing_compiler",
+                                     "unchanged_source", "changed_source"])
+def test_failed_build_raises(outcome, tmp_path, monkeypatch):
+    """``ops/_build.py``, which builds every native library of the port,
+    with the host compiler. No silent fallback to the Python discretizer: a
+    compiler that fails, or none at all, raises and leaves no library, and
+    the failure carries the compiler's output. An unchanged source is built
+    once and reused; a changed one is built into a new library."""
+    out = tmp_path / "_build"
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_log", {})
+    if outcome.endswith("_compiler"):
+        monkeypatch.setattr(_build, "HOST",
+                            dataclasses.replace(_build.HOST, out=out))
+        cxx = (_compiler_script(tmp_path / "cc", "echo cc: no luck; exit 3\n")
+               if outcome == "failing_compiler"
+               else str(tmp_path / "no-such-compiler"))
         monkeypatch.setenv("CXX", cxx)
-        with pytest.raises(RuntimeError):
+        seqs = [it.TrotGait().build_sequence(FEET, 0.0, 1.5)]
+        with pytest.raises(RuntimeError) as err:
             it.discretize_batch(seqs, [0.0], 0.5, 20, device="cpu")
-    assert not list((tmp_path / "_build").glob("*.so"))
+        assert not list(out.glob("*"))
+        if outcome == "failing_compiler":
+            assert "cc: no luck" in str(err.value)
+        return
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "HOST", dataclasses.replace(
+        _build.HOST, csrc=csrc, out=out))
+    runs = tmp_path / "runs"
+    monkeypatch.setenv("CXX", _compiler_script(
+        tmp_path / "cc", f"echo run >> {runs}\nexec "
+        + " ".join(_build._cxx()) + ' "$@"\n'))
+    answers = (1, 1) if outcome == "unchanged_source" else (1, 2)
+    for k, answer in enumerate(answers):
+        (csrc / "tiny.cpp").write_text(
+            f'extern "C" int answer() {{ return {answer}; }}\n')
+        _build._libs.clear()
+        assert _build.load("tiny").answer() == answer, k
+    assert len(list(out.glob("*.so"))) == len(set(answers))
+    assert runs.read_text().count("run") == len(set(answers))

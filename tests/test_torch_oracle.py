@@ -92,7 +92,8 @@ def _compare(solver, args, N, nx, nw):
     of the KKT system assembled from the same linearization."""
     sol_b, q_b, v_b = solver._batched(args[1], args[2])
     lin, term, _cs, _facs, _P, _s, dx, du, _dxi, dwe, _pols = \
-        solver._direction(sol_b, args[0], q_b, v_b, *args[3:],
+        solver._direction(sol_b, args[0], q_b, v_b,
+                          *(solver.check_schedule(s) for s in args[3:]),
                           named_blocks=True)
     lin = lin.map(lambda x: x[0].numpy())      # the batch's one scenario
     dx, du, dwe = dx[0].numpy(), du[0].numpy(), dwe[0].numpy()

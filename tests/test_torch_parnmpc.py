@@ -136,7 +136,7 @@ def _t_direction(solver, q0, v0, sched):
                         schedule=sched)
     solver.init_constraints(sched)
     sol_b, q_b, v_b = solver._batched(q0, v0)
-    out = solver._direction(sol_b, 0.0, q_b, v_b, sched)
+    out = solver._direction(sol_b, 0.0, q_b, v_b, solver.check_schedule(sched))
     P, s, dx, du, dxi = out[4:9]
     lam = (P @ dx[..., None])[..., 0] + s
     return {k: x[0].numpy() for k, x in

@@ -236,7 +236,8 @@ def test_three_updates_match_jax_field_for_field(problem):
     try:
         for it_ in range(3):
             c_eval, v_eval = problem["t_solver"].evaluate_all(
-                t_sol, T0, tq, tv, t_sched)
+                t_sol, T0, tq, tv,
+                problem["t_solver"].check_schedule(t_sched, B))
             j_sol, j_stats = _j_update(problem, j_sol, q_b, v_b)
             t_sol, t_stats = bs.update(t_sol, T0, tq, tv, t_sched)
             _assert_same(j_sol, t_sol, what=f"update {it_}: ")
@@ -317,6 +318,8 @@ def test_sibling_update_at_another_barrier_equals_a_solver_built_at_it(problem):
         options=opts2, dtype=torch.float64, device="cpu",
         impulse_cost=t_solver.impulse_cost)
     t_sched = problem["t_sched"]
+    # the layout the solver's closures take below its entry points
+    t_in = t_solver.check_schedule(t_sched, B)
     tq, tv = torch.from_numpy(problem["q_b"]), torch.from_numpy(problem["v_b"])
     # an iterate off the warm start: slacks and duals that differ per stage
     sol_b, _ = t_solver.update_batched(
@@ -326,7 +329,7 @@ def test_sibling_update_at_another_barrier_equals_a_solver_built_at_it(problem):
 
     fns = t_solver._fns_for(opts2)
     assert fns is not t_solver._fns_for(t_solver.options)
-    sib_sol, sib_stats = fns["update"](sol_b, T0, tq, tv, t_sched)
+    sib_sol, sib_stats = fns["update"](sol_b, T0, tq, tv, t_in)
     ref_sol, ref_stats = at_mu2.update_batched(sol_b, T0, tq, tv, t_sched)
     own_sol, own_stats = t_solver.update_batched(sol_b, T0, tq, tv, t_sched)
     for obj, ref in ((sib_sol, ref_sol), (sib_stats, ref_stats)):
@@ -336,14 +339,14 @@ def test_sibling_update_at_another_barrier_equals_a_solver_built_at_it(problem):
     # and mu matters here: the update at the solver's own barrier differs
     assert float((sib_stats.barrier - own_stats.barrier).abs().min()) > 1e-3
     assert float((sib_sol.u - own_sol.u).abs().max()) > 1e-6
-    close(fns["kkt"](sol_b, T0, tq, tv, t_sched).numpy(),
+    close(fns["kkt"](sol_b, T0, tq, tv, t_in).numpy(),
           at_mu2.kkt_error_batched(sol_b, T0, tq, tv, t_sched).numpy(), "kkt")
     # the merit of the trial grid is the one of this mu
-    c_mu2, v_mu2 = t_solver.evaluate_all(sol_b, T0, tq, tv, t_sched,
+    c_mu2, v_mu2 = t_solver.evaluate_all(sol_b, T0, tq, tv, t_in,
                                          options=opts2)
     close(c_mu2.numpy(), (sib_stats.cost + sib_stats.barrier).numpy(), "cost0")
     close(v_mu2.numpy(), sib_stats.violation.numpy(), "viol0")
-    c_own, _ = t_solver.evaluate_all(sol_b, T0, tq, tv, t_sched)
+    c_own, _ = t_solver.evaluate_all(sol_b, T0, tq, tv, t_in)
     assert float((c_mu2 - c_own).abs().min()) > 1e-3
 
     # through solve(): the first iteration of the stage at mu2 is that update

@@ -36,7 +36,8 @@ def test_profile_phases_compose_to_the_update_direction(options):
     with torch.no_grad():
         for name, fn in steps.items():
             out[name] = fn()
-    ref = bs.solver._direction(sol_b, T0, q_b, v_b, sched)
+    ref = bs.solver._direction(sol_b, T0, q_b, v_b,
+                               bs.solver.check_schedule(sched, 2))
     for got, want in zip(out["riccati"], ref[6:9]):
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
     new_sol, _ = out["update_full"]
