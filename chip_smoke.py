@@ -41,8 +41,10 @@ kernel's two entry points (``chol_tri_inv``, ``chol_rescue_tri_inv``) and the
 derivative chain's kernel (``id_derivatives``, at the cells' sizes, with its
 time beside the plain chain's) against their plain PyTorch versions on the
 card, shows that every path went through them (launch counts, asserted per
-configuration), and checks the card's results against the port's own f64
-runs on the CPU. Every failure raises, so the process then exits
+configuration; an update replayed from CUDA graphs counts the launches its
+graphs hold), says of each path whether its updates replayed (a line
+``{"phase": "graphs", ...}``), and checks the card's results against the
+port's own f64 runs on the CPU. Every failure raises, so the process then exits
 non-zero. It needs one CUDA device and no network. One JSON object per line;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -80,6 +82,7 @@ from idocp_tpu_torch.riccati import recursion
 from idocp_tpu_torch.robot import dynamics
 from idocp_tpu_torch.robot import model as model_mod
 from idocp_tpu_torch.robot import spatial
+from idocp_tpu_torch.solver.graph import UpdateGraphs
 from idocp_tpu_torch.tools import (accuracy_oracle, chol_kernel_bench,
                                    linearize_profile, mfu_report,
                                    runtime_profile, scaling_evidence,
@@ -683,6 +686,16 @@ def id_derivatives_checks(gen):
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
+
+def with_graphs(path, phase, *args):
+    """``phase(*args)``, then one line: how the updates of the path ran on
+    the card (calls eager, captured into CUDA graphs, replayed)."""
+    before = dict(UpdateGraphs.totals)
+    out = phase(*args)
+    calls = {k: UpdateGraphs.totals[k] - before[k] for k in before}
+    emit(phase="graphs", path=path, replayed=calls["replays"] > 0, **calls)
+    return out
+
 
 def reset_launches():
     for wrapper in WRAPPERS.values():
@@ -2397,32 +2410,34 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
-    launches, state = phase_main_path(gpu)
+    launches, state = with_graphs("main_path", phase_main_path, gpu)
     bs, sol_b, q_b, v_b, sched = state
     phase_split(gpu, bs, sol_b, T0, q_b, v_b, sched)
     del state, bs, sol_b
-    ls_launches, ls_ms = phase_line_search(gpu)
-    solve_launches = phase_kkt_and_solve(gpu, ls_ms)
+    ls_launches, ls_ms = with_graphs("line_search", phase_line_search, gpu)
+    solve_launches = with_graphs("kkt_and_solve", phase_kkt_and_solve, gpu,
+                                 ls_ms)
     launches = {k: launches[k] + ls_launches[k] + solve_launches[k]
                 for k in launches}
     phase_accuracy(gpu, line_search_on=False)
     phase_accuracy(gpu, line_search_on=True)
-    unconstr_launches = phase_unconstr(gpu)
+    unconstr_launches = with_graphs("unconstr", phase_unconstr, gpu)
     phase_unconstr_accuracy(gpu)
-    cost_launches = phase_costs(gpu)
+    cost_launches = with_graphs("costs", phase_costs, gpu)
     launches = {k: launches[k] + unconstr_launches[k] + cost_launches[k]
                 for k in launches}
     for phase in (phase_batched_mpc, phase_standing, phase_closed_loop):
-        phase_launches = phase(gpu)
+        phase_launches = with_graphs(phase.__name__[6:], phase, gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
-    phase_launches = phase_parallel_riccati(gpu, gen)
+    phase_launches = with_graphs("parallel_riccati", phase_parallel_riccati,
+                                 gpu, gen)
     launches = {k: launches[k] + phase_launches[k] for k in launches}
     for phase in (phase_distributed, phase_examples):
-        phase_launches = phase(gpu)
+        phase_launches = with_graphs(phase.__name__[6:], phase, gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
     phase_dynamics(gpu)
     for phase in (phase_tools, phase_bench):
-        phase_launches = phase(gpu)
+        phase_launches = with_graphs(phase.__name__[6:], phase, gpu)
         launches = {k: launches[k] + phase_launches[k] for k in launches}
 
     print(gpu)

@@ -17,10 +17,13 @@ A kernel wrapper checks its inputs, allocates its outputs and calls
 library on the current stream of the tensors' device and counts the launch in
 ``<wrapper>.launches`` and, while ``<wrapper>.shapes`` is a list (a reader
 such as ``tools.mfu_report`` sets it), in ``shapes``; ``counted`` gives a
-wrapper both.
+wrapper both. Inside ``capturing()`` (a CUDA graph records the launch) the
+launch is logged instead, and counted by ``count`` each time the graph
+replays.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -76,6 +79,8 @@ HOST = Toolchain(".cpp", _PKG / "hybrid" / "csrc", _PKG / "hybrid" / "_build",
 
 _libs: dict = {}
 _entries: dict = {}
+#: inside ``capturing()``: the (wrapper, shape) of each launch captured
+_captured = None
 #: seconds spent in the compiler and its output, per source, for reports
 build_log: dict = {}
 
@@ -143,6 +148,26 @@ def counted(wrapper):
     return wrapper
 
 
+def count(wrapper, shape):
+    """One launch of ``wrapper`` of ``shape`` in its counters."""
+    wrapper.launches += 1
+    if wrapper.shapes is not None:
+        wrapper.shapes.append(shape)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Inside the block a launch runs on a stream that a CUDA graph
+    captures, and is not counted: the block gives the list of the
+    (wrapper, shape) launched, for ``count`` at each replay."""
+    global _captured
+    was, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = was
+
+
 def _current_stream(index: int) -> int:
     """Handle of the current CUDA stream of device ``index``. PyTorch's
     internal accessor returns it without building a ``Stream`` object, which
@@ -179,6 +204,7 @@ def launch(wrapper, library: str, device, dtype, argtypes, args, shape):
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
                            f"CUDA error {err}")
-    wrapper.launches += 1
-    if wrapper.shapes is not None:
-        wrapper.shapes.append(shape)
+    if _captured is not None:
+        _captured.append((wrapper, shape))
+    else:
+        count(wrapper, shape)

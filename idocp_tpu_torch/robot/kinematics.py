@@ -79,6 +79,17 @@ def _take(model, key, x, rows, dim):
     return torch.index_select(x, dim, model.index(key, rows))
 
 
+def revolute_one_dof(model, one_dof):
+    """Cached (n,) bool on the model's device: which of the one-dof bodies
+    ``one_dof`` (every body that is not free, in order) turn about their
+    axis; the others slide along it."""
+    if "rev_one_dof" not in model.cache:
+        model.cache["rev_one_dof"] = torch.as_tensor(
+            [model.joint_types[i] == REVOLUTE for i in one_dof],
+            device=model.device)
+    return model.cache["rev_one_dof"]
+
+
 def _local_transforms_grouped(model: RobotModel, q):
     """Per-body pose relative to its parent body, X_pc = X_tree * X_joint, in
     [free..., one_dof...] group order: (..., nb, 3, 3), (..., nb, 3)."""
@@ -94,9 +105,7 @@ def _local_transforms_grouped(model: RobotModel, q):
     if one_dof.size:
         qi = _take(model, "q_one_dof", q,
                    [model.q_offset[i] for i in one_dof], -1)[..., None]
-        rev = model.cache.setdefault("rev_one_dof", torch.as_tensor(
-            [model.joint_types[i] == REVOLUTE for i in one_dof],
-            device=model.device))
+        rev = revolute_one_dof(model, one_dof)
         ax = _take(model, "one_dof", model.joint_axis, one_dof, 0)
         Rt = _take(model, "one_dof", model.jpl_rot, one_dof, 0)
         pt = _take(model, "one_dof", model.jpl_pos, one_dof, 0)

@@ -34,8 +34,8 @@ import torch
 from .. import ops
 from ..utils import tracing
 from . import lie
-from .kinematics import body_poses_stacked, frame_pose_of
-from .model import FREE, REVOLUTE, RobotModel
+from .kinematics import body_poses_stacked, frame_pose_of, revolute_one_dof
+from .model import FREE, RobotModel
 
 cross = lie.cross
 
@@ -197,9 +197,7 @@ def fk(model: RobotModel, q) -> FK:
     one_dof = [i for i in range(model.nbodies) if model.joint_types[i] != FREE]
     if one_dof:
         idx = model.index("one_dof", one_dof)
-        rev = model.cache.setdefault("rev_one_dof", torch.as_tensor(
-            [model.joint_types[i] == REVOLUTE for i in one_dof],
-            device=model.device))[:, None]
+        rev = revolute_one_dof(model, one_dof)[:, None]
         ax_w = lie.mv3(torch.index_select(Rw, -3, idx),
                        torch.index_select(model.joint_axis, 0, idx))
         o_w = torch.index_select(pw, -2, idx)

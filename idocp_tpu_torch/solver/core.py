@@ -18,7 +18,9 @@ arguments, as the twin's ``*extra``. A schedule with one row per scenario
 ``check_schedule`` expands a shared one) is repeated for each trial of the
 grid. The update and each of its phases run inside a span
 of ``utils/tracing.py`` (``idocp.update``, ``idocp.update.linearize``, ...),
-a shared no-op unless the program is traced.
+a shared no-op unless the program is traced. On a CUDA device the update is
+replayed from CUDA graphs captured once per batch and schedule shape
+(``graph.py``); on the CPU it runs as written.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from ..ocp.stage import chain_to_x
 from ..robot import model as model_mod
 from ..utils import tracing
 from . import line_search as ls_mod
+from .graph import UpdateGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +174,10 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
         violation), each (L,), reading only the primal and slack fields of a
         solution with leading axis L; the merit pair of the filter line
         search, called only when options.use_line_search.
+
+    The function returned carries ``graphs``, its ``graph.UpdateGraphs``
+    (the counts of its eager, captured and replayed calls; ``graphs.body``
+    is the update as written).
     """
     nv = model.nv
     tau = options.fraction_to_boundary
@@ -178,7 +185,14 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
     @torch.no_grad()
     def update(sol: Solution, t, q_meas, v_meas, *extra):
         with tracing.span("idocp.update"):
-            return _update(sol, t, q_meas, v_meas, *extra)
+            (new_sol, stats), replayed = graphs(sol, t, q_meas, v_meas, *extra)
+        # host values and references to the returned stats: a replay's own
+        # output buffers are overwritten by the next replay
+        tracing.keep("idocp.update.graph", int(replayed))
+        if options.use_line_search:
+            tracing.keep("idocp.update.ls_trial", stats.ls_trial)
+            tracing.keep("idocp.update.ls_accepted", stats.ls_accepted)
+        return new_sol, stats
 
     def _update(sol, t, q_meas, v_meas, *extra):
         lin, term, cs, _, P, s, dx, du, dxi, dwe, _ = direction(
@@ -320,8 +334,6 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
                     eval_grid, alpha_p, options.line_search_alphas, cost0,
                     viol0, margin=options.line_search_margin,
                     filter_cost=sol.filter_cost, filter_viol=sol.filter_viol)
-            tracing.keep("idocp.update.ls_trial", ls_trial)
-            tracing.keep("idocp.update.ls_accepted", ls_accepted)
             ls_insert = torch.logical_not(ls_by_cost)
         else:
             ap = alpha_p
@@ -382,6 +394,8 @@ def make_update_fn(model, options, direction: Callable, N: int, w_split: int,
             ls_trial=ls_trial)
         return new_sol, stats
 
+    graphs = UpdateGraphs(_update, options)
+    update.graphs = graphs
     return update
 
 

@@ -67,7 +67,8 @@ class _SolverCommon:
 
     def _t_final(self, t):
         """The terminal time as a 0-d tensor: a reference given as a callable
-        of t gets a tensor on every stage."""
+        of t gets a tensor on every stage. ``t`` is a number, or a 0-d tensor
+        on the device (a captured update's), which adds no host copy."""
         return torch.as_tensor(t + self.T, dtype=self.dtype,
                                device=self.device)
 

@@ -13,16 +13,20 @@ No twin: the JAX package has no tracing of its own.
 - inside ``enabled()``, the operator's mode on the host clock, it records
   ``(name, start_ns, end_ns, parent)`` (``time.perf_counter_ns``) into a
   list of at most ``MAX_RECORDS``; ``records()`` and ``summary()`` read it;
-- otherwise it returns one shared object that does nothing: two flag
+- otherwise it returns one shared object that does nothing: three flag
   reads and two empty calls. ``record_function`` is not called then: with
   the profiler off it still costs many times as much.
 
+Inside ``diverted(fn)``, before all three, ``span(name)`` is ``fn(name)``:
+the capture of a CUDA graph (``solver/graph.py``) cuts its graphs where a
+span opens and closes, and opens the same spans when it replays them.
+
 ``keep(name, tensor)`` keeps, in either of the first two states, a
-reference to a tensor the program already computed, in a ring of the last
-``RING`` per name: no launch, no copy, no host read. A counter the program
-has to compute for the purpose is computed only while ``active()`` holds,
-on the host from host arrays, and kept as a numpy array, which
-dispatches nothing. ``counters()`` reads them back to the host.
+reference to a tensor the program already computed (or a host value), in a
+ring of the last ``RING`` per name: no launch, no copy, no host read. A
+counter the program has to compute for the purpose is computed only while
+``active()`` holds, on the host from host arrays, and kept as a numpy
+array, which dispatches nothing. ``counters()`` reads them back to the host.
 No span or counter changes a number the program computes.
 
 Every name starts with ``idocp.``, so that none collides with an aten op.
@@ -47,6 +51,7 @@ class _State:
         self.records = []   # [name, start_ns, end_ns, parent index]
         self.open = []      # indices of the open records, innermost last
         self.kept = {}      # name -> deque of tensors
+        self.divert = None  # what span(name) returns instead, or None
 
 
 _state = _State()
@@ -92,6 +97,8 @@ class _HostSpan:
 def span(name):
     """The range ``name`` around a ``with`` block (see the module's
     docstring for its three states)."""
+    if _state.divert is not None:
+        return _state.divert(name)
     # read through the module: the profiler rebinds the name
     if _profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
@@ -107,9 +114,9 @@ def active():
 
 
 def keep(name, tensor):
-    """Keep a reference to ``tensor`` (or to a numpy array on the host)
-    under ``name`` while the profiler records or ``enabled()`` holds: the
-    last ``RING`` per name."""
+    """Keep a reference to ``tensor`` (or to a host value: a numpy array,
+    a number) under ``name`` while the profiler records or ``enabled()``
+    holds: the last ``RING`` per name."""
     if active():
         ring = _state.kept.get(name)
         if ring is None:
@@ -126,6 +133,16 @@ def enabled():
         yield
     finally:
         _state.on = was
+
+
+@contextlib.contextmanager
+def diverted(fn):
+    """Inside the block ``span(name)`` returns ``fn(name)``."""
+    was, _state.divert = _state.divert, fn
+    try:
+        yield
+    finally:
+        _state.divert = was
 
 
 def records():

@@ -211,7 +211,10 @@ def test_outputs_and_aten_ops_equal_off_on_and_under_the_profiler(runs):
     # the search's counters, kept on the host clock and under the profiler
     for key in ("counters", "kept_under_profiler"):
         kept = runs["iiwa14_search"][key]
-        assert set(kept) == {"idocp.update.ls_trial", "idocp.update.ls_accepted"}
+        assert set(kept) == {"idocp.update.ls_trial", "idocp.update.ls_accepted",
+                             "idocp.update.graph"}
+        # one update, eager on the CPU (no CUDA graph replayed it)
+        assert kept["idocp.update.graph"].tolist() == [0]
         stats = runs["iiwa14_search"]["got"]["off"][0][1]
         assert torch.equal(kept["idocp.update.ls_trial"], stats.ls_trial)
         assert torch.equal(kept["idocp.update.ls_accepted"], stats.ls_accepted)
@@ -219,7 +222,9 @@ def test_outputs_and_aten_ops_equal_off_on_and_under_the_profiler(runs):
     for key in ("counters", "kept_under_profiler"):
         kept = runs["trot_mpc"][key]
         assert set(kept) == {"idocp.schedule.sw_rows",
-                             "idocp.schedule.sw_block_rows"}
+                             "idocp.schedule.sw_block_rows",
+                             "idocp.update.graph"}
+        assert kept["idocp.update.graph"].tolist() == [0]
         sched = runs["trot_mpc"]["schedule"]
         assert torch.equal(kept["idocp.schedule.sw_rows"],
                            3 * sched.sw_contact.sum((-2, -1)))
