@@ -19,7 +19,9 @@ simulator in f64 and f32 with the LQR policy against a zero-order hold. The
 parallel-in-time Riccati recursion (``ParNMPCSolver``,
 ``UnconstrParNMPCSolver``) beside the serial solvers on the trot and iiwa14 at
 full width, the crossover in N of the recursion alone, and its f64 gates
-(direction and per-scenario ``BatchedMPC`` against the serial path). The
+(direction and per-scenario ``BatchedMPC`` against the serial path), and
+``ParNMPCSolver`` under ``BatchedMPC`` with per-scenario phases at B=512 in
+f64 replayed from CUDA graphs, bit for bit the update as written. The
 batch split over processes at world size 1 (``distributed.initialize`` with
 NCCL, the pod mesh, ``make_mesh``): the trot update through the mesh bit for
 bit against the meshless one, ``mean_kkt_error`` through NCCL, ``BatchedMPC``
@@ -147,6 +149,15 @@ ZOH_N, ZOH_T, ZOH_PERIODS, ZOH_SUBSTEPS = 8, 0.4, 5, 4
 PAR_CROSSOVER_N, PAR_REPS, PAR_MPC_STEPS, PAR_PRE_UPDATES = (
     (10, 20, 50, 100), 5, 3, 8)
 PAR_DIR_TOL, PAR_MPC_TOL = 1e-7, 1e-6
+# ParNMPCSolver under BatchedMPC with per-scenario gait phases as the
+# benchmark's cell anymal_parnmpc.phases_b4096 runs it (N=20, f64, the main
+# path's options), at BATCH scenarios: the update as written beside its
+# graphs holds the working set twice, and at the cell's 4096 one copy takes
+# 47.7 GB of an 80-GB H100.
+# Replayed from CUDA graphs: the first update eager, the second captured
+# (and replayed), PARNMPC_REPLAYS more replayed, the first of them bit for
+# bit the update as written; every update launches what "parallel" says.
+PARNMPC_REPLAYS = 4
 # The batch split over processes on one card (world size 1, NCCL): the trot
 # update through make_mesh against the meshless one in turns (DIST_TURNS
 # rounds of DIST_UPDATES timed updates), BatchedMPC at MPC_BIG with and
@@ -222,10 +233,16 @@ IIWA_SHAPES = [(IIWA_BATCH, 7, 7), (SOLVE_BATCH, 7, 7)]
 MPC_SHAPES = [(MPC_BIG * N_HORIZON, 18, 18), (MPC_BIG * N_HORIZON, 12, 12),
               (MPC_BIG, 12, 12)]
 AWKWARD_SHAPES = [(1000, 18, 18), (1, 12, 12), (7, 5, 5), (33, 32, 32)]
+# one robot's serial update (MPC.step, B=1): the stages, the impulse slots
+# and the switching Schur complement; its control Hessian is the rescue's
+# (1, 12, 12)
+SINGLE_SHAPES = [(N_HORIZON, 18, 18), (N_HORIZON, 12, 12), (4, 18, 18),
+                 (4, 12, 12), (1, 12, 12)]
 # the parallel recursion factors whole horizons at once: Quu and G of the
-# trot's 10 240 stages (its Schur complement is PATH_SHAPES' (10240, 12, 12)),
-# Quu of the fixed base's 25 600
+# trot's 10 240 stages (its Schur complement is PATH_SHAPES' (10240, 12, 12))
+# and of the 81 920 of BatchedMPC at MPC_BIG, Quu of the fixed base's 25 600
 PARALLEL_RESCUE_SHAPES = [(BATCH * N_HORIZON, 12, 12),
+                          (MPC_BIG * N_HORIZON, 12, 12),
                           (IIWA_BATCH * IIWA_N, 7, 7)]
 RESCUE_SHAPES = [(BATCH, 12, 12), (SOLVE_BATCH, 12, 12), (777, 12, 12),
                  (77, 18, 18), (45, 7, 7), (MPC_BIG, 12, 12)] + IIWA_SHAPES \
@@ -451,17 +468,18 @@ def wrapper_host_cost(gen):
     }
 
 
-def timing_row(fn, plain, shape, err, gen, floor_probe):
-    """Timings of one entry point at one f32 shape of the main path, over
-    distinct SPD buffers that together exceed the L2 cache."""
+def timing_row(fn, plain, shape, err, gen, floor_probe, dtype=torch.float32):
+    """Timings of one entry point at one shape of the main path (f32 unless
+    ``dtype`` says otherwise), over distinct SPD buffers that together
+    exceed the L2 cache."""
     b, n, _ = shape
-    nbytes = 2 * b * n * n * 4
+    nbytes = 2 * b * n * n * dtype.itemsize
     k = int(min(64, max(2, -(-100e6 // nbytes))))
-    inputs = [spd(shape, torch.float32, gen) for _ in range(k)]
+    inputs = [spd(shape, dtype, gen) for _ in range(k)]
     reps = max(1, 200 // k)
-    bms, by = bound_ms(shape, torch.float32)
+    bms, by = bound_ms(shape, dtype)
     return {
-        "shape": list(shape), "dtype": "float32", "max_abs_err": err,
+        "shape": list(shape), "dtype": str(dtype)[6:], "max_abs_err": err,
         "ms": device_ms(fn, inputs),
         "launch_floor_ms": device_ms(floor_probe, inputs),
         "eager_ms": time_ms(fn, inputs, reps),
@@ -474,7 +492,7 @@ def phase_kernels(gen):
     errs = {}
     for dtype in (torch.float32, torch.float64):
         for shape in (PATH_SHAPES + SOLVE_SHAPES + IIWA_SHAPES + MPC_SHAPES
-                      + AWKWARD_SHAPES):
+                      + SINGLE_SHAPES + AWKWARD_SHAPES):
             errs[(shape, dtype)] = check_against_plain(
                 spd(shape, dtype, gen), f"{shape} {dtype}")
         check_against_plain(schur_like(2048, dtype, gen), f"masked S {dtype}")
@@ -506,6 +524,12 @@ def phase_kernels(gen):
                 G, rungs = ladder_batch(shape, dtype, gen, reg)
                 rescue_errs[(shape, dtype, reg)] = check_rescue_against_plain(
                     G, reg, rungs, f"{shape} {dtype} reg={reg}")
+        # one robot's control Hessian (1, 12, 12), on each rung in turn
+        G, rungs = ladder_batch((3, 12, 12), dtype, gen, 0.0)
+        for r in range(3):
+            rescue_errs[((1, 12, 12), dtype, r)] = check_rescue_against_plain(
+                G[r:r + 1].contiguous(), 0.0, rungs[r:r + 1],
+                f"(1, 12, 12) rung {r} {dtype}")
         G, rungs = ladder_batch((100, 12, 12), dtype, gen, 0.0)
         check_rescue_against_plain(unaligned(G), 0.0, rungs, f"unaligned {dtype}")
         # on positive definite input the ladder changes nothing
@@ -546,12 +570,14 @@ def phase_kernels(gen):
                        errs[(shape, torch.float32)], gen, probe)
             for shape in PATH_SHAPES + MPC_SHAPES[:1]]
     # the control Hessian of one Riccati step: trot, then fixed base; then
-    # the whole horizons of the parallel recursion
+    # the whole horizons of the parallel recursion, and the 81 920 of
+    # BatchedMPC at MPC_BIG again in f64, as ParNMPCSolver runs them there
     rescue_rows = [timing_row(
         ops.chol_rescue_tri_inv, ops.chol_rescue_tri_inv_reference,
-        shape, rescue_errs[(shape, torch.float32, "spd")], gen, probe)
-        for shape in ((BATCH, 12, 12), IIWA_SHAPES[0]) + tuple(
-            PARALLEL_RESCUE_SHAPES)]
+        shape, rescue_errs[(shape, dtype, "spd")], gen, probe, dtype)
+        for shape, dtype in [(s, torch.float32) for s in (
+            [(BATCH, 12, 12), IIWA_SHAPES[0]] + PARALLEL_RESCUE_SHAPES)]
+        + [((MPC_BIG * N_HORIZON, 12, 12), torch.float64)]]
     id_rows = id_derivatives_checks(gen)
     emit(phase="kernels", tolerance_f32=1e-4, tolerance_f64=1e-11,
          chol_tri_inv={"checked_shapes": len(errs) + 8, "shapes": rows},
@@ -1868,6 +1894,66 @@ def phase_parallel_riccati(gpu, gen):
     return total
 
 
+def phase_parnmpc_phases(gpu):
+    """``ParNMPCSolver`` under ``BatchedMPC`` with per-scenario phases at
+    BATCH scenarios in f64 (PARNMPC_REPLAYS above), with the card's memory
+    after the replays. Returns the launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mpc, sol_b, q_b, v_b = build_mpc(BATCH, torch.float64, "cuda",
+                                     options_for(False, False),
+                                     random_offsets(BATCH),
+                                     solver_cls=it.ParNMPCSolver)
+    solver = mpc.solver
+    graphs = solver._update.graphs
+    before = (graphs.eager, graphs.captures, graphs.replays)
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def counted(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_launches("parallel", 1)
+        for k in total:
+            total[k] += launches[k]
+        return out
+
+    sw_stages, replay_ms = [], []
+    for k in range(2 + PARNMPC_REPLAYS):
+        t = MPC_DT * k
+        sched = mpc.schedules_at(t)
+        sw_stages.append(int(sched.sw_contact.any(-1).sum(-1).max()))
+        if k == 2:
+            with torch.no_grad():
+                ref = counted(lambda: graphs.body(
+                    sol_b, t, q_b, v_b, solver.check_schedule(sched, BATCH)))
+        t0 = time.perf_counter()
+        out = counted(lambda: mpc.bs.update(sol_b, t, q_b, v_b, sched))
+        if k >= 2:
+            replay_ms.append(1e3 * (time.perf_counter() - t0))
+        if k == 2:
+            bitwise_equal(out[0], ref[0], "ParNMPC replay: solution")
+            bitwise_equal(out[1], ref[1], "ParNMPC replay: stats")
+        sol_b = out[0]
+    calls = [a - b for a, b in zip(
+        (graphs.eager, graphs.captures, graphs.replays), before)]
+    if calls != [1, 1, 1 + PARNMPC_REPLAYS]:     # the capture replays too
+        raise AssertionError(f"ParNMPC under BatchedMPC: eager, captured, "
+                             f"replayed {calls}")
+    if not bool(torch.isfinite(sol_b.u).all()):
+        raise AssertionError("ParNMPC under BatchedMPC: non-finite torques")
+    emit(phase="parnmpc_phases", gpu=gpu, batch=BATCH, horizon=N_HORIZON,
+         dtype="float64", eager_captured_replayed=calls,
+         max_switching_stages_per_step=sw_stages,
+         ms_per_replayed_update=replay_ms,
+         memory_allocated_bytes=torch.cuda.memory_allocated(),
+         memory_reserved_bytes=torch.cuda.memory_reserved(),
+         max_memory_reserved_bytes=torch.cuda.max_memory_reserved())
+    del mpc, sol_b, out, ref
+    torch.cuda.empty_cache()
+    return total
+
+
 # ---------------------------------------------------------------------------
 # multi-process scale-out on the card: torch.distributed at world size 1
 # ---------------------------------------------------------------------------
@@ -2431,6 +2517,8 @@ def main():
         launches = {k: launches[k] + phase_launches[k] for k in launches}
     phase_launches = with_graphs("parallel_riccati", phase_parallel_riccati,
                                  gpu, gen)
+    launches = {k: launches[k] + phase_launches[k] for k in launches}
+    phase_launches = with_graphs("parnmpc_phases", phase_parnmpc_phases, gpu)
     launches = {k: launches[k] + phase_launches[k] for k in launches}
     for phase in (phase_distributed, phase_examples):
         phase_launches = with_graphs(phase.__name__[6:], phase, gpu)

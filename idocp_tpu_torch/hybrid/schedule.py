@@ -164,14 +164,18 @@ def schedule_from_arrays(dt, t_offset, contact_active, contact_pos, imp_mask,
 def _keep_switching_rows(sw_contact):
     """The counters ``idocp.schedule.sw_rows``, the active switching rows
     (3 per foot in ``sw_contact``) of each scenario-window summed over its
-    stages, and ``idocp.schedule.sw_block_rows``, the rows the serial
-    sweep's switching block holds there (N stages of 3 nc): (B,) or (1,)
-    arrays on the host, counted from the host mask (N, nc) or
-    (B, N, nc)."""
+    stages, ``idocp.schedule.sw_block_rows``, the rows the serial sweep's
+    switching block holds there (N stages of 3 nc), and
+    ``idocp.schedule.sw_stages``, the stages that carry switching rows
+    there (each takes a slot of the parallel recursion's switching
+    correction): (B,) or (1,) arrays on the host, counted from the host mask
+    (N, nc) or (B, N, nc)."""
     rows = 3 * sw_contact.sum(axis=(-2, -1), dtype=np.int64).reshape(-1)
     tracing.keep("idocp.schedule.sw_rows", rows)
     tracing.keep("idocp.schedule.sw_block_rows", np.full(
         rows.shape, 3 * sw_contact.shape[-2] * sw_contact.shape[-1]))
+    tracing.keep("idocp.schedule.sw_stages", sw_contact.any(axis=-1).sum(
+        axis=-1, dtype=np.int64).reshape(-1))
 
 
 @dataclasses.dataclass

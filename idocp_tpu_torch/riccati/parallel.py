@@ -28,6 +28,13 @@ size to MAGMA, which synchronises the device with the host twice per call;
 cuSOLVER's batched LU does not, and is preferred around each call
 (``_cusolver``).
 
+The recursion runs in three spans of ``utils/tracing.py``:
+``idocp.riccati.backward`` (``parallel_backward``: the elements, the suffix
+scan, the gains), ``idocp.riccati.rollout`` (``parallel_rollout``) and
+``idocp.riccati.switching`` (the rest of ``parallel_constrained``: the
+slots, the injections' two scans, G, Theta and its LU, the corrected
+direction).
+
 Element convention: a conditional value function V_{i->j}(x_i, x_j) is
 e = (A, b, C, eta, J); the suffix combination e_k (x) ... (x) e_N gives the
 cost-to-go V_k(x) = 1/2 x'J x - eta'x, i.e. P_k = J_k, s_k = -eta_k.
@@ -40,6 +47,7 @@ import torch
 
 from ..ocp.data import CondensedStage
 from ..ops import chol_rescue_tri_inv
+from ..utils import tracing
 from .recursion import LQRPolicy, backward_step
 
 
@@ -166,6 +174,11 @@ def parallel_backward(P_term, s_term, stages: CondensedStage, reg=0.0):
     """O(log N)-depth backward pass on (B, N, ...) stages. Returns (P (B, N+1,
     nx, nx), s (B, N+1, nx), policies (B, N, ...)), equal to solver precision
     to ``recursion.backward_recursion`` with an all-zero switching mask."""
+    with tracing.span("idocp.riccati.backward"):
+        return _backward(P_term, s_term, stages, reg)
+
+
+def _backward(P_term, s_term, stages, reg):
     B, N = stages.A.shape[:2]
     elems = _make_elements(stages, reg)
     zero_m = torch.zeros_like(P_term)[:, None]
@@ -201,6 +214,11 @@ def parallel_rollout(dx0, stages: CondensedStage, pols: LQRPolicy):
     """O(log N)-depth forward rollout: prefix composition of the closed-loop
     affine maps x' = (A + B K) x + (B k + r). Returns (dx (B, N+1, nx),
     du (B, N, nu), dxi (B, N, ns)), as ``recursion.forward_rollout``."""
+    with tracing.span("idocp.riccati.rollout"):
+        return _rollout(dx0, stages, pols)
+
+
+def _rollout(dx0, stages, pols):
     M = stages.A + stages.B @ pols.K
     c = stages.xres + _mv(stages.B, pols.k)
     comb = lambda ei, ej: (ej[0] @ ei[0], _mv(ej[0], ei[1]) + ej[1])
@@ -231,15 +249,22 @@ def parallel_constrained(P_term, s_term, stages: CondensedStage, sw_mask,
     nu), dxi (B, N, ns), pols), where pols are the UNCONSTRAINED stage
     policies (the xi correction is a horizon-global feedforward, not a
     per-stage gain)."""
-    B, N, nx = stages.A.shape[:3]
-    nu = stages.B.shape[-1]
     ns = stages.Cx.shape[-2]
-
     P, s0, pols = parallel_backward(P_term, s_term, stages, reg=reg)
     dx_u, du_u, _ = parallel_rollout(dx0, stages, pols)
     if k_sw == 0 or ns == 0:
         return P, s0, dx_u, du_u, torch.zeros_like(stages.h), pols
+    with tracing.span("idocp.riccati.switching"):
+        dx, du, dxi, s_corr = _switching(stages, sw_mask, k_sw, reg, P, s0,
+                                         dx_u, du_u, pols)
+    return P, s_corr, dx, du, dxi, pols
 
+
+def _switching(stages, sw_mask, k_sw, reg, P, s0, dx_u, du_u, pols):
+    """The switching correction of ``parallel_constrained``: (dx, du, dxi,
+    s corrected) from the unconstrained solve."""
+    B, N = stages.A.shape[:2]
+    ns = stages.Cx.shape[-2]
     dtype, device = P.dtype, P.device
     k_sw = min(k_sw, N)
     sw = sw_mask.to(dtype)
@@ -296,4 +321,4 @@ def parallel_constrained(P_term, s_term, stages: CondensedStage, sw_mask,
     s_corr = torch.cat([s0[:, :N] + _mv(ds, xi[:, None]), s0[:, N:]], dim=1)
     xi_rows = (rflat * xi).reshape(B, 1, k_sw, ns)
     dxi = (onehot[..., None] * xi_rows).sum(dim=2)               # (B, N, ns)
-    return P, s_corr, dx, du, dxi, pols
+    return dx, du, dxi, s_corr

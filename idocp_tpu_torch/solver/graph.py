@@ -27,12 +27,18 @@ The capture is cut at every span of ``utils/tracing.py`` the body opens: each
 stretch between two cuts is a graph of its own, and a replay opens and
 closes the same spans around the graphs of their stretches, so the span tree
 of a replayed update is that of an eager one (``idocp.update.linearize``
-holds the launches of its graphs). The hand kernels' wrappers count a launch
-that a graph holds at each replay (``ops/_build.py::capturing``). The
-capture itself runs in the span ``idocp.update.capture``, with Python's
-cycle collector run before it and off during it (a graph it freed, an
-earlier solver's, would release device memory inside the capture). A
-capture that fails raises; nothing falls back to the eager body.
+holds the launches of its graphs). While the program is traced
+(``tracing.active()``) a replay also records a CUDA event on its stream
+where each span opens and closes (``tracing.keep_interval``), so that the
+device's time inside a span is known though the span holds graph launches,
+not kernels. The hand kernels' wrappers count a launch that a graph holds
+at each replay (``ops/_build.py::capturing``). The capture itself runs in
+the span ``idocp.update.capture``, with Python's cycle collector run before
+it and off during it (a graph it freed, an earlier solver's, would release
+device memory inside the capture), and after the allocator has returned
+its cached blocks to the card: the eager call left its working set cached
+there, and the capture's own pool cannot reuse it. A capture that fails
+raises; nothing falls back to the eager body.
 """
 from __future__ import annotations
 
@@ -155,6 +161,13 @@ def _collector_off():
             gc.enable()
 
 
+def _recorded():
+    """A timing CUDA event recorded on the current stream."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
 class _Graph:
     """The update captured for one key: input buffers, the program of
     graphs and spans, the output tensors, and the hand kernels' launches
@@ -167,11 +180,13 @@ class _Graph:
         self.t = torch.zeros((), dtype=torch.float64, device=dev)
         self.load(leaves, t)
         sol, q, v, extra = rebuild(args, iter(self.inputs))
+        self.device = dev
         capture = _Capture()
         stream.wait_stream(torch.cuda.current_stream(dev))
         with _collector_off(), torch.cuda.stream(stream), \
                 _build.capturing() as held, \
                 tracing.diverted(lambda name: _Cut(capture, name)):
+            torch.cuda.empty_cache()
             capture.begin()
             try:
                 out = body(sol, self.t, q, v, *extra)
@@ -195,16 +210,22 @@ class _Graph:
             self.t.fill_(t)
 
     def replay(self):
-        """Every graph in order, inside the spans the body opened; then the
-        hand kernels' counters, as an eager update would leave them."""
+        """Every graph in order, inside the spans the body opened, each
+        span's stretch between two CUDA events while the program is traced;
+        then the hand kernels' counters, as an eager update would leave
+        them."""
+        timed = tracing.active() and self.device.type == "cuda"
         open_spans = []
         for step in self.program:
             if step is None:
-                open_spans.pop().__exit__(None, None, None)
+                name, span, start = open_spans.pop()
+                if start is not None:
+                    tracing.keep_interval(name, start, _recorded())
+                span.__exit__(None, None, None)
             elif isinstance(step, str):
                 span = tracing.span(step)
                 span.__enter__()
-                open_spans.append(span)
+                open_spans.append((step, span, _recorded() if timed else None))
             else:
                 step.replay()
         for wrapper, shape in self.launches:

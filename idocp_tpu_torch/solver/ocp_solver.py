@@ -397,7 +397,11 @@ class OCPSolver(_SolverCommon):
                        schedule: HorizonSchedule):
         """One Newton iteration on a batch of scenarios (leading axis B) on a
         shared or a batched ``schedule``: (new batched Solution, UpdateStats
-        of (B,))."""
+        of (B,)). On the parallel recursion it keeps, while the program is
+        traced, the counter ``idocp.riccati.sw_slots``: the stages per
+        scenario-window its switching correction holds a slot for."""
+        if self.options.parallel_riccati:
+            tracing.keep("idocp.riccati.sw_slots", self.max_impulse_stages)
         return self._update(sol_b, t, q_b, v_b,
                             self.check_schedule(schedule, sol_b.q.shape[0]))
 

@@ -27,7 +27,12 @@ ring of the last ``RING`` per name: no launch, no copy, no host read. A
 counter the program has to compute for the purpose is computed only while
 ``active()`` holds, on the host from host arrays, and kept as a numpy
 array, which dispatches nothing. ``counters()`` reads them back to the host.
-No span or counter changes a number the program computes.
+``keep_interval(name, start, end)`` keeps, likewise, the pair of CUDA events
+an update replayed from CUDA graphs records on its stream where the span
+``name`` opens and closes (``solver/graph.py``): nothing inside a graph,
+nothing read back until ``device_ms()`` turns them into the device's
+milliseconds between each pair. No span or counter changes a number the
+program computes.
 
 Every name starts with ``idocp.``, so that none collides with an aten op.
 The program is traced from one thread.
@@ -51,6 +56,7 @@ class _State:
         self.records = []   # [name, start_ns, end_ns, parent index]
         self.open = []      # indices of the open records, innermost last
         self.kept = {}      # name -> deque of tensors
+        self.timed = {}     # name -> deque of (start, end) CUDA events
         self.divert = None  # what span(name) returns instead, or None
 
 
@@ -124,6 +130,17 @@ def keep(name, tensor):
         ring.append(tensor)
 
 
+def keep_interval(name, start, end):
+    """Keep the CUDA events ``start`` and ``end``, recorded on the stream
+    where the span ``name`` opened and closed, while ``active()`` holds:
+    the last ``RING`` pairs per name."""
+    if active():
+        ring = _state.timed.get(name)
+        if ring is None:
+            ring = _state.timed[name] = collections.deque(maxlen=RING)
+        ring.append((start, end))
+
+
 @contextlib.contextmanager
 def enabled():
     """Record spans on the host clock, and keep counters, inside the
@@ -180,8 +197,22 @@ def counters():
             for name, ring in _state.kept.items() if ring}
 
 
+def device_ms():
+    """{name: 1-D float64 host tensor}: the device milliseconds between the
+    events of each pair ``keep_interval`` kept under the name, oldest first;
+    waits for the last pair of each name to be reached."""
+    out = {}
+    for name, ring in _state.timed.items():
+        if ring:
+            ring[-1][1].synchronize()
+            out[name] = torch.tensor([s.elapsed_time(e) for s, e in ring],
+                                     dtype=torch.float64)
+    return out
+
+
 def reset():
-    """Forget every record and every kept tensor."""
+    """Forget every record, every kept tensor and every kept interval."""
     _state.records.clear()
     _state.open.clear()
     _state.kept.clear()
+    _state.timed.clear()

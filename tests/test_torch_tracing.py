@@ -223,12 +223,15 @@ def test_outputs_and_aten_ops_equal_off_on_and_under_the_profiler(runs):
         kept = runs["trot_mpc"][key]
         assert set(kept) == {"idocp.schedule.sw_rows",
                              "idocp.schedule.sw_block_rows",
+                             "idocp.schedule.sw_stages",
                              "idocp.update.graph"}
         assert kept["idocp.update.graph"].tolist() == [0]
         sched = runs["trot_mpc"]["schedule"]
         assert torch.equal(kept["idocp.schedule.sw_rows"],
                            3 * sched.sw_contact.sum((-2, -1)))
         assert kept["idocp.schedule.sw_block_rows"].tolist() == [3 * 6 * 4] * 2
+        assert torch.equal(kept["idocp.schedule.sw_stages"],
+                           sched.sw_contact.any(-1).sum(-1))
 
 
 def test_keep_is_bounded_and_counters_join_what_it_kept():
